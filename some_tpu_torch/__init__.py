@@ -1,0 +1,7 @@
+"""SOME-TPU ported to PyTorch and CUDA: the inference path on an NVIDIA H100.
+
+The JAX package ``some_tpu`` is the reference this port is held against; the
+port imports nothing of it and nothing of JAX. The kernels that ``some_tpu``
+writes in Pallas for the TPU are hand-written CUDA C++ for Hopper here
+(``csrc/``), each beside a plain PyTorch version that the CPU runs.
+"""
