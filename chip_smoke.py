@@ -67,6 +67,19 @@ def bf16_ulp(torch, ref):
     return torch.ldexp(torch.ones_like(ref, dtype=torch.float32), exponent - 8)
 
 
+def grad_tolerance(torch, want, rel):
+    """Allowed |kernel - plain| for each element of ``want``: ``rel`` times
+    the RMS of ``want`` (the sums run in another order, and the backward of
+    attention takes rowsum(dO * O) where the plain autograd takes
+    rowsum(P * dP)), plus 2 ulp of |want| in its dtype (both round the
+    result once)."""
+    w = want.detach().float()
+    _, exponent = torch.frexp(w.abs())
+    bits = 8 if want.dtype == torch.bfloat16 else 24
+    ulp = torch.where(w == 0, 0.0, torch.ldexp(torch.ones_like(w), exponent - bits))
+    return 2 * ulp + rel * float(w.pow(2).mean().sqrt())
+
+
 def check_depthwise(torch):
     import torch.nn.functional as F
     from some_tpu_torch.ops.depthwise import depthwise_conv1d, depthwise_conv1d_plain
@@ -188,6 +201,11 @@ def check_attention(torch):
 
 
 MATMUL_KERNEL_NAMES = ("gemm", "cutlass", "sm90_", "cublas", "nvjet")
+# (substring of the CUDA kernel's name, group), first match wins
+KERNEL_GROUPS = (("flash_fwd_stats", "flash_attention_fwd_res"),
+                 ("flash_fwd", "flash_attention"), ("flash_bwd_dkv", "flash_attention_bwd_dkv"),
+                 ("flash_bwd_dq", "flash_attention_bwd_dq"),
+                 ("depthwise_dw", "depthwise_conv1d_dw"), ("depthwise_fwd", "depthwise_conv1d"))
 
 
 def profile_pass(torch, run):
@@ -206,10 +224,9 @@ def profile_pass(torch, run):
     groups = {}
     for e in kernels:
         name = e.key.lower()
-        group = ("flash_attention" if "flash_fwd" in name else
-                 "depthwise_conv1d" if "depthwise_fwd" in name else
-                 "matmul" if any(t in name for t in MATMUL_KERNEL_NAMES)
-                 else "fft" if "fft" in name else "other")
+        group = next((g for key, g in KERNEL_GROUPS if key in name), None) or (
+            "matmul" if any(t in name for t in MATMUL_KERNEL_NAMES)
+            else "fft" if "fft" in name else "other")
         groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return {"wall_s": wall_s, "device_ms": total_us / 1e3,
@@ -369,6 +386,469 @@ def main_path(torch, workdir: pathlib.Path):
     return result, main_launches, blocks
 
 
+# ---- the training slice ----
+
+def kernel_counters():
+    """name -> the wrapper whose ``launches`` counts that kernel's launches."""
+    from some_tpu_torch.ops import attention as A
+    from some_tpu_torch.ops import depthwise as W
+
+    return {"depthwise_conv1d": W.depthwise_conv1d, "depthwise_conv1d_dx": W.depthwise_conv1d_dx,
+            "depthwise_conv1d_dw": W.depthwise_conv1d_dw, "flash_attention": A.flash_attention,
+            "flash_attention_fwd_res": A.flash_attention_fwd_res,
+            "flash_attention_bwd_dkv": A.flash_attention_bwd_dkv,
+            "flash_attention_bwd_dq": A.flash_attention_bwd_dq}
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def reset_counts():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def compare(torch, label, got, want, rel):
+    """Raise unless ``got`` is finite and within grad_tolerance(want, rel)
+    everywhere; returns (max |d|, max |d| / tol)."""
+    d = (got.detach().float() - want.detach().float()).abs()
+    ratio = float((d / grad_tolerance(torch, want, rel)).max())
+    finite = bool(torch.isfinite(got.detach().float()).all())
+    if not finite or ratio > 1.0:
+        raise AssertionError(f"{label}: max |d|/tol {ratio:.3f}, finite {finite}")
+    return float(d.max()), ratio
+
+
+def timing_row(torch, shape, dtype, max_diff, ratio, kernel, plain, library, nbytes, flops,
+               peak, reps=10):
+    bound_ms, bound_by = bound(nbytes, flops, peak)
+    return {"shape": list(shape), "dtype": str(dtype)[6:], "max_abs_diff": max_diff,
+            "max_diff_over_tol": ratio, "kernel_ms": median_ms(torch, kernel, reps=reps),
+            "plain_ms": median_ms(torch, plain, reps=3, warmup=1),
+            "library_ms": median_ms(torch, library, reps=reps),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_depthwise_backward(torch):
+    """K1's backward: dx (the forward kernel on the cotangent with the taps
+    flipped) and dw (the reduction kernel) against the autograd of the plain
+    version, on a random cotangent. Tolerance: 2 ulp of |want| in its dtype
+    plus 1e-4 x RMS(want) (f32 sums over B*T in another order)."""
+    from some_tpu_torch.ops.depthwise import (
+        depthwise_conv1d, depthwise_conv1d_dw, depthwise_conv1d_dw_plain, depthwise_conv1d_dx,
+        depthwise_conv1d_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {"depthwise_conv1d_dx": [], "depthwise_conv1d_dw": []}
+    K = 31
+    for shape in ((8, 1024, 512), (1, 32768, 512)):
+        for dtype in (torch.bfloat16, torch.float32):
+            B, T, C = shape
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype).requires_grad_()
+            w = (torch.randn((K, C), generator=gen, device="cuda") * 0.1).to(dtype)
+            w.requires_grad_()
+            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            y = depthwise_conv1d(x, w)
+            if y.grad_fn is None:
+                raise AssertionError("K1 on a CUDA tensor that needs grad returned no grad_fn")
+            dx, dw = torch.autograd.grad(y, (x, w), g)
+            want_dx, want_dw = torch.autograd.grad(depthwise_conv1d_plain(x, w), (x, w), g)
+            xd, wd = x.detach(), w.detach()
+            xc, gc = xd.transpose(1, 2).contiguous(), g.transpose(1, 2).contiguous()
+            wc = wd.t().unsqueeze(1).contiguous()
+            nbytes = (2 * B * T * C + K * C) * x.element_size()
+            for name, got, want, kernel, plain, library in (
+                    ("depthwise_conv1d_dx", dx, want_dx, lambda: depthwise_conv1d_dx(g, wd),
+                     lambda: depthwise_conv1d_plain(g, wd.flip(0)),
+                     lambda: torch.nn.grad.conv1d_input(xc.shape, wc, gc, padding=K // 2,
+                                                        groups=C)),
+                    ("depthwise_conv1d_dw", dw, want_dw, lambda: depthwise_conv1d_dw(xd, g, K),
+                     lambda: depthwise_conv1d_dw_plain(xd, g, K),
+                     lambda: torch.nn.grad.conv1d_weight(xc, wc.shape, gc, padding=K // 2,
+                                                         groups=C))):
+                max_diff, ratio = compare(torch, f"{name} {list(shape)} {dtype}", got, want, 1e-4)
+                log(f"{name} {list(shape)} {str(dtype)[6:]}: max|d| {max_diff:.3e}, max |d|/tol "
+                    f"{ratio:.3f} (2 ulp + 1e-4 RMS): ok")
+                rows[name].append(timing_row(torch, shape, dtype, max_diff, ratio, kernel, plain,
+                                             library, nbytes, 2 * B * T * C * K,
+                                             PEAK_FLOPS["float32"]))
+            del x, w, g, y, dx, dw, want_dx, want_dw, xd, wd, xc, gc, wc
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_attention_backward(torch):
+    """K2 for training: the forward with residuals and the dk/dv and dq
+    kernels, through FlashAttentionFn, against the autograd of the plain
+    version, with q, k, v, dO as [B, H, T, D] views of [B, T, H, D] storage
+    (as the model passes them), a padded tail, an all-masked row (B > 1) and
+    a random dO. Tolerance: 2 ulp of |want| plus 0.02 x RMS(want) in bf16
+    (both round P to bf16, at other points), 5e-5 x RMS(want) in f32. In the
+    all-masked row dq and dk must be exactly 0, and so must dk at padded keys."""
+    import torch.nn.functional as F
+    from some_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = {"flash_attention_fwd_res": [], "flash_attention_bwd_dkv": [],
+            "flash_attention_bwd_dq": []}
+    for shape in ((8, 8, 1024, 64), (1, 8, 8192, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            B, H, T, D = shape
+            q, k, v, do = (torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
+                           .transpose(1, 2) for _ in range(4))
+            mask = torch.ones((B, T), dtype=torch.bool, device="cuda")
+            tail = int(T * 0.7)
+            mask[0, tail:] = False
+            if B > 1:
+                mask[B - 1] = False
+            scale = D ** -0.5
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = A.flash_attention(*leaves, mask, scale)
+            if out.grad_fn is None:
+                raise AssertionError("K2 on a CUDA tensor that needs grad returned no grad_fn")
+            grads = torch.autograd.grad(out, leaves, do)
+            want_out = A.attention_plain(*leaves, mask, scale)
+            wants = torch.autograd.grad(want_out, leaves, do, retain_graph=True)
+            rel = 0.02 if dtype == torch.bfloat16 else 5e-5
+            label = f"{list(shape)} {str(dtype)[6:]}"
+            checks = {"out": compare(torch, f"K2 out {label}", out, want_out, rel)}
+            for name, got, want in zip(("dq", "dk", "dv"), grads, wants):
+                checks[name] = compare(torch, f"K2 {name} {label}", got, want, rel)
+            empty = ~mask.any(dim=1)
+            exact = (bool((grads[1][0, :, tail:] == 0).all())
+                     and bool((grads[0][empty] == 0).all()) and bool((grads[1][empty] == 0).all()))
+            if not exact:
+                raise AssertionError(f"K2 {label}: nonzero dq or dk at masked keys or rows")
+            log(f"K2 backward {label}: " + ", ".join(
+                f"{n} max|d| {d:.3e} |d|/tol {r:.3f}" for n, (d, r) in checks.items())
+                + f" (2 ulp + {rel} RMS); dq, dk exactly 0 at masked keys and in the "
+                f"{int(empty.sum())} all-masked row(s): ok")
+
+            out_k, stats = A.flash_attention_fwd_res(q, k, v, mask, scale)
+            delta = (do.float() * out_k.float()).sum(-1).contiguous()
+            sdpa_mask = (mask | empty[:, None])[:, None, None, :]
+            lib_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            lib_out = F.scaled_dot_product_attention(*lib_leaves, attn_mask=sdpa_mask)
+            isz = q.element_size()
+            peak = PEAK_FLOPS[str(dtype)[6:]]
+            flops = B * H * T * T * D
+            plain_bwd = lambda: torch.autograd.grad(want_out, leaves, do, retain_graph=True)
+            lib_bwd = lambda: torch.autograd.grad(lib_out, lib_leaves, do, retain_graph=True)
+
+            def lib_fwd():
+                with torch.enable_grad():
+                    return F.scaled_dot_product_attention(*lib_leaves, attn_mask=sdpa_mask)
+
+            d_out = checks["out"]
+            d_kv = max(checks["dk"], checks["dv"])
+            rows["flash_attention_fwd_res"].append(timing_row(
+                torch, shape, dtype, *d_out, lambda: A.flash_attention_fwd_res(q, k, v, mask, scale),
+                lambda: A.attention_plain(q, k, v, mask, scale), lib_fwd,
+                4 * B * H * T * D * isz + B * T + 8 * B * H * T, 4 * flops, peak, reps=5))
+            rows["flash_attention_bwd_dkv"].append(timing_row(
+                torch, shape, dtype, *d_kv,
+                lambda: A.flash_attention_bwd_dkv(q, k, v, do, stats, delta, mask, scale),
+                plain_bwd, lib_bwd, 6 * B * H * T * D * isz + 12 * B * H * T + B * T,
+                8 * flops, peak, reps=5))
+            rows["flash_attention_bwd_dq"].append(timing_row(
+                torch, shape, dtype, *checks["dq"],
+                lambda: A.flash_attention_bwd_dq(q, k, v, do, stats, delta, mask, scale),
+                plain_bwd, lib_bwd, 5 * B * H * T * D * isz + 12 * B * H * T + B * T,
+                6 * flops, peak, reps=5))
+            del q, k, v, do, leaves, out, grads, want_out, wants, out_k, stats, delta
+            del lib_leaves, lib_out, plain_bwd, lib_bwd
+            torch.cuda.empty_cache()
+    return rows
+
+
+def make_item(rng, n_frames, n_notes, units_dim):
+    """One training item with the fields of tests/test_training.py::make_item:
+    random units, a pitch curve, notes of random pitch (a fifth rests) whose
+    durations add up to the frame count, and the frame-to-note alignment."""
+    note_dur = rng.multinomial(n_frames - n_notes, np.ones(n_notes) / n_notes) + 1
+    return {"units": rng.standard_normal((n_frames, units_dim)).astype(np.float32),
+            "pitch": rng.uniform(40, 80, n_frames).astype(np.float32),
+            "note_dur": note_dur.astype(np.int64),
+            "unit2note": np.repeat(np.arange(1, n_notes + 1), note_dur).astype(np.int64),
+            "length": n_frames, "seconds": n_frames * 512 / 44100,
+            "note_midi": rng.uniform(40, 80, n_notes).astype(np.float32),
+            "note_rest": rng.random(n_notes) < 0.2}
+
+
+def synthetic_items(seed, n, units_dim, lo=600, hi=2000):
+    """``n`` items of ``lo``..``hi`` frames (7-23 s of singing at 86 frames/s),
+    a note every 15 to 40 frames."""
+    rng = np.random.default_rng(seed)
+    items = []
+    for _ in range(n):
+        frames = int(rng.integers(lo, hi + 1))
+        items.append(make_item(rng, frames, max(4, frames // int(rng.integers(15, 41))),
+                               units_dim))
+    return items
+
+
+def in_memory_task(config, train_items, valid_items, device="cuda"):
+    """The port's MIDIExtractionTask reading in-memory items instead of HDF5
+    (the pattern of tests/test_training.py's RecordingTask)."""
+    from some_tpu_torch.training.me_task import MIDIExtractionTask
+
+    class InMemoryTask(MIDIExtractionTask):
+        def load_datasets(self):
+            sizes = lambda items: np.array([i["length"] for i in items])
+            return (train_items, sizes(train_items)), (valid_items, sizes(valid_items))
+
+        def train_step(self, state, batch):
+            import torch
+
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logs = super().train_step(state, batch)
+            torch.cuda.synchronize()
+            after = read_counts()
+            self.step_records.append({
+                "s": time.perf_counter() - t0, "rows": int(batch["size"]),
+                "T": int(batch["units"].shape[1]), "frames": int(batch["mask"].sum()),
+                "total_loss": float(logs["total_loss"]), "grad_norm": float(logs["grad_norm"]),
+                "launches": {n: after[n] - before[n] for n in after}})
+            return logs
+
+    task = InMemoryTask(config, device=device)
+    task.step_records = []
+    return task
+
+
+def production_config(**overrides):
+    from some_tpu_torch.config import read_full_config
+
+    config = read_full_config(REPO / "configs" / "midi_conformer.yaml")
+    config.update(overrides)
+    return config
+
+
+def train_path(torch, workdir: pathlib.Path, n_steps=12):
+    """Trainer.fit at production width (configs/midi_conformer.yaml: 8
+    dual-stream layers, dim 512, 8 x 64 heads, k 31, bf16, remat on,
+    dropout 0.1) on 64 synthetic items of 600-2000 frames, batches of up to
+    8 rows bucketed to 128 frames; validation and a checkpoint at the last
+    step; then the infer path loads that checkpoint and transcribes a song."""
+    from some_tpu_torch.audio.wavio import save_wav
+    from some_tpu_torch.config import save_yaml
+    from some_tpu_torch.infer import load_engine, transcribe_file
+    from some_tpu_torch.training.checkpoint import latest_checkpoint
+    from some_tpu_torch.training.trainer import Trainer
+    from some_tpu_torch.utils.midi_file import MidiFile
+
+    config = production_config(val_check_interval=n_steps, num_sanity_val_steps=0,
+                               log_interval=4, max_val_batch_size=1)
+    args = config["midi_extractor_args"]
+    blocks = 2 * args["lay"] + 2
+    remat_blocks = 2 * args["lay"]
+    log(f"train path: configs/midi_conformer.yaml, lay {args['lay']} dim {args['dim']} heads "
+        f"{args['attention_heads']}x{args['attention_heads_dim']} k {args['kernel_size']}, "
+        f"{config['pl_trainer_precision']}, remat {config.get('use_remat', True)}, dropout "
+        f"{args['conv_drop']}, max {config['max_batch_size']} rows x "
+        f"{config['max_batch_frames']} frames, bucket grid {config['frame_bucket_grid']}")
+    train_items = synthetic_items(7, 64, config["units_dim"])
+    valid_items = synthetic_items(8, 3, config["units_dim"])
+    work = workdir / "train"
+    work.mkdir()
+    save_yaml(config, work / "config.yaml")
+    task = in_memory_task(config, train_items, valid_items)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = Trainer(task, work)
+    state = trainer.fit(max_steps=n_steps)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launched = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    records = task.step_records
+    if state.step != n_steps or len(records) != n_steps:
+        raise AssertionError(f"fit ran {state.step} steps ({len(records)} timed), want {n_steps}")
+    want = {"depthwise_conv1d": blocks + remat_blocks, "depthwise_conv1d_dx": blocks,
+            "depthwise_conv1d_dw": blocks, "flash_attention": 0,
+            "flash_attention_fwd_res": blocks + remat_blocks, "flash_attention_bwd_dkv": blocks,
+            "flash_attention_bwd_dq": blocks}
+    for i, rec in enumerate(records):
+        if rec["launches"] != want:
+            raise AssertionError(f"train step {i} launched {rec['launches']}, want {want}")
+    if any(n == 0 for n in launched.values()):
+        raise AssertionError(f"a kernel of the train path never launched: {launched}")
+    losses = [r["total_loss"] for r in records]
+    if not all(np.isfinite(losses)) or not all(np.isfinite([r["grad_norm"] for r in records])):
+        raise AssertionError(f"non-finite training logs: {records}")
+    warm = records[2:]
+    step_ms = statistics.median(r["s"] * 1e3 for r in warm)
+    frames_per_s = sum(r["frames"] for r in warm) / sum(r["s"] for r in warm)
+    log(f"train path: {n_steps} steps in {fit_s:.1f} s (fit, validation and checkpoint); "
+        f"launches per step {want} on every step; warm step median {step_ms:.1f} ms "
+        f"(synchronized per step), {frames_per_s:.0f} frames/s; peak {peak_gib:.2f} GiB; "
+        f"losses {[round(x, 4) for x in losses]}; validation {trainer.last_validation}")
+
+    # device busy share of one more step on the largest bucket, against the
+    # unprofiled wall of the same step
+    big = max(range(len(train_items) // 8), key=lambda i: max(
+        train_items[j]["length"] for j in range(8 * i, 8 * i + 8)))
+    batch = task.to_device(task.collate(train_items[8 * big: 8 * big + 8]))
+    task.train_step(state, batch)
+    walls = []
+    for _ in range(3):
+        task.train_step(state, batch)
+        walls.append(task.step_records[-1]["s"])
+    profiled = profile_pass(torch, lambda: (task.train_step(state, batch),
+                                            torch.cuda.synchronize()))
+    profiled["busy_share_of_unprofiled_wall"] = (profiled["device_ms"] / 1e3
+                                                 / statistics.median(walls))
+    profiled["batch"] = [int(batch["size"]), int(batch["units"].shape[1])]
+    log("train step profile: " + json.dumps(profiled))
+
+    ckpt = latest_checkpoint(work)
+    if ckpt is None or ckpt.name != f"model_ckpt_steps_{n_steps}.ckpt":
+        raise AssertionError(f"no checkpoint of step {n_steps} in {work}: {ckpt}")
+    validation = trainer.last_validation
+    if not validation or not all(np.isfinite(list(validation.values()))):
+        raise AssertionError(f"validation gave {validation}")
+    del state, trainer, task, batch
+    torch.cuda.empty_cache()
+    engine = load_engine(ckpt, device="cuda", quiet=True)
+    save_wav(workdir / "trained.wav", make_song(4242, phrases=2), SR)
+    midi = transcribe_file(engine, workdir / "trained.wav", workdir / "trained.mid")
+    notes = len(MidiFile.load(midi).notes())
+    log(f"infer from the trained checkpoint {ckpt.name}: {engine.forwards} forwards, "
+        f"{notes} notes in {midi.name}")
+    del engine
+    torch.cuda.empty_cache()
+    return {"steps": n_steps, "fit_s": fit_s, "warm_step_ms_median": step_ms,
+            "frames_per_s": frames_per_s, "peak_gib": peak_gib, "step_records": records,
+            "launches_per_step": want, "validation": validation, "profile": profiled,
+            "infer_notes": notes}, launched
+
+
+def step_grads(torch, task, state, batch):
+    """One forward and backward of the task's train step, no update: the
+    logs and every parameter's gradient."""
+    from some_tpu_torch.nn.conformer import set_dropout_step
+    from some_tpu_torch.training.optimizers import global_norm
+
+    model = state.model
+    model.train()
+    set_dropout_step(model, task.config["seed"], 0)
+    b = task.to_device(batch)
+    losses = task.compute_losses(model(**task.model_inputs(b)), b)
+    total = sum(losses.values())
+    model.zero_grad(set_to_none=True)
+    total.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    logs = {k: float(v.detach()) for k, v in losses.items()}
+    logs["total_loss"] = float(total.detach())
+    logs["grad_norm"] = float(global_norm(list(grads.values())))
+    return logs, grads
+
+
+def kernel_vs_plain_step(torch):
+    """One train step from one state and one batch with dropout 0, through
+    the kernels and through the plain versions (attention_impl 'xla', the
+    depthwise conv's plain impl), production width. Losses and grad_norm:
+    relative difference <= 1e-4 in f32, 2e-2 in bf16. Every parameter's
+    gradient: ||g_kernel - g_plain|| <= rel x max(||g_plain||, 1e-3 x the
+    gradient's RMS over the model x sqrt(its size)), rel 1e-3 in f32 and 0.1
+    in bf16 (the two round at other points through 18 blocks). The
+    depthwise biases are held apart: the BatchNorm after the conv cancels
+    them, so their gradient is 0 in exact arithmetic and float noise in both
+    paths, whose norm must stay below 0.01 (f32) or 0.1 (bf16) x the
+    model's gradient RMS x sqrt(size)."""
+    from some_tpu_torch.nn.conformer import DepthwiseConv1d
+
+    items = synthetic_items(9, 4, 80, lo=900, hi=1100)
+    result = {}
+    for precision, rel_log, rel_grad in (("32-true", 1e-4, 1e-3), ("bf16", 2e-2, 0.1)):
+        config = production_config(pl_trainer_precision=precision)
+        config["midi_extractor_args"] = dict(config["midi_extractor_args"], conv_drop=0.0,
+                                             ffn_latent_drop=0.0, ffn_out_drop=0.0,
+                                             attention_drop=0.0)
+        runs = {}
+        for impl in ("kernel", "plain"):
+            cfg = dict(config, attention_impl="auto" if impl == "kernel" else "xla")
+            task = in_memory_task(cfg, items, items)
+            state = task.init_state(seed=11)
+            if impl == "plain":
+                for module in state.model.modules():
+                    if isinstance(module, DepthwiseConv1d):
+                        module.impl = "plain"
+            batch = task.collate(items)
+            reset_counts()
+            runs[impl] = step_grads(torch, task, state, batch)
+            counts = read_counts()
+            if (impl == "plain") == any(counts.values()):
+                raise AssertionError(f"{precision} {impl} path launches {counts}")
+            del task, state
+        (logs_k, grads_k), (logs_p, grads_p) = runs["kernel"], runs["plain"]
+        for key in logs_k:
+            if abs(logs_k[key] - logs_p[key]) > rel_log * abs(logs_p[key]):
+                raise AssertionError(f"{precision} {key}: kernel {logs_k[key]} plain {logs_p[key]}")
+        n_all = sum(g.numel() for g in grads_p.values())
+        rms_all = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads_p.values()) / n_all))
+        errs = []
+        for name, gp in grads_p.items():
+            scale = 1e-3 * rms_all * gp.numel() ** 0.5
+            if name.endswith("conv.dw.bias"):
+                # the BatchNorm right after the depthwise conv removes any
+                # per-channel constant: this gradient is 0 in exact arithmetic,
+                # so both paths must give float noise far below the model's scale
+                size = max(float(grads_k[name].float().norm()), float(gp.float().norm()))
+                limit = (0.1 if precision == "bf16" else 0.01) * rms_all * gp.numel() ** 0.5
+                if size > limit:
+                    raise AssertionError(f"{precision}: {name} has gradient norm {size:.3e}, "
+                                         f"want below {limit:.3e}")
+                continue
+            err = float((grads_k[name].float() - gp.float()).norm()) / max(
+                float(gp.float().norm()), scale)
+            errs.append((err, name))
+        errs.sort(reverse=True)
+        worst = errs[0]
+        if worst[0] > rel_grad:
+            raise AssertionError(f"{precision}: gradient of {worst[1]} off by {worst[0]:.3e} "
+                                 f"(relative), limit {rel_grad}; worst {errs[:5]}")
+        log(f"kernel vs plain train step, {precision}, 4 rows x {batch['units'].shape[1]}"
+            f" frames: losses kernel {logs_k} plain {logs_p}; worst parameter gradients "
+            f"{[(n, f'{e:.3e}') for e, n in errs[:3]]} relative (limit {rel_grad}); the "
+            f"depthwise biases' gradients are float noise in both: ok")
+        result[precision] = {"kernel": logs_k, "plain": logs_p, "worst_grad_rel": worst[0],
+                             "worst_grad_param": worst[1]}
+        del runs, grads_k, grads_p
+        torch.cuda.empty_cache()
+    return result
+
+
+def overfit_f32(torch, n_steps=30):
+    """f32, production width, one fixed batch of 4 rows, warmup_steps cut to
+    10, dropout as configured: the mean loss of the last 5 steps must be at
+    most a quarter of that of the first 5 (measured on the H100: about a
+    tenth). Trained output heads alone would lower the loss on one fixed
+    batch too, so a loose margin would pass a backbone cut off from its
+    gradients."""
+    items = synthetic_items(10, 4, 80, lo=900, hi=1100)
+    config = production_config(pl_trainer_precision="32-true")
+    config["lr_scheduler_args"] = dict(config["lr_scheduler_args"], warmup_steps=10)
+    task = in_memory_task(config, items, items)
+    state = task.init_state()
+    batch = task.to_device(task.collate(items))
+    losses = [float(task.train_step(state, batch)["total_loss"]) for _ in range(n_steps)]
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    log(f"f32 overfit, {n_steps} steps on one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"mean of the first 5 {first:.4f}, of the last 5 {last:.4f} (need <= 0.25 x first)")
+    if not last <= 0.25 * first:
+        raise AssertionError(f"f32 loss did not fall: {losses}")
+    del task, state, batch
+    torch.cuda.empty_cache()
+    return {"losses": losses, "first5_mean": first, "last5_mean": last}
+
+
 def main() -> int:
     import torch
 
@@ -405,28 +885,44 @@ def main() -> int:
         log(f"  {name}: {len(regs)} kernel variants, at most {max(regs)} registers, "
             f"{spills} bytes of spill stores")
 
-    dw_rows = check_depthwise(torch)
-    attn_rows = check_attention(torch)
+    rows = {"depthwise_conv1d": check_depthwise(torch), "flash_attention": check_attention(torch)}
+    rows.update(check_depthwise_backward(torch))
+    rows.update(check_attention_backward(torch))
 
     with tempfile.TemporaryDirectory(prefix="some_tpu_torch_smoke_") as tmp:
-        main_result, launches, blocks = main_path(torch, pathlib.Path(tmp))
+        reset_counts()
+        main_result, infer_launches, blocks = main_path(torch, pathlib.Path(tmp))
+        train_result, train_launches = train_path(torch, pathlib.Path(tmp))
+    agreement = kernel_vs_plain_step(torch)
+    overfit = overfit_f32(torch)
 
-    def entry(name, source, replaces, rows):
-        head = rows[0]  # [8, ...] bf16: the production dtype at a main-path batch
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[name], "launches_per_forward": blocks,
-                "max_abs_err": max(r["max_abs_diff"] for r in rows),
+    flash_py = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    kernels = (
+        ("depthwise_conv1d", "depthwise_conv.cu", "some_tpu/ops/depthwise.py:24"),
+        ("flash_attention", "flash_attention.cu", "some_tpu/ops/attention.py:61"),
+        ("depthwise_conv1d_dx", "depthwise_conv.cu", "some_tpu/ops/depthwise.py:126"),
+        ("depthwise_conv1d_dw", "depthwise_conv.cu", "some_tpu/ops/depthwise.py:127"),
+        ("flash_attention_fwd_res", "flash_attention.cu", f"{flash_py}:234"),
+        ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", f"{flash_py}:941"),
+        ("flash_attention_bwd_dq", "flash_attention_bwd.cu", f"{flash_py}:1287"))
+
+    def entry(name, source, replaces):
+        head = rows[name][0]  # [8, ...] bf16: the production dtype at a main-path batch
+        by_path = {"infer": infer_launches.get(name, 0), "train": train_launches[name]}
+        return {"name": name, "route": "cuda", "source": f"some_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "launches_per_train_step": train_result["launches_per_step"][name],
+                "max_abs_err": max(r["max_abs_diff"] for r in rows[name]),
                 "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                 "library_ms": head["library_ms"], "shape": head["shape"],
-                "dtype": head["dtype"], "card": card, "shapes": rows}
+                "dtype": head["dtype"], "card": card, "shapes": rows[name]}
 
-    print(json.dumps({"kernels": [
-        entry("depthwise_conv1d", "some_tpu_torch/csrc/depthwise_conv.cu",
-              "some_tpu/ops/depthwise.py:24", dw_rows),
-        entry("flash_attention", "some_tpu_torch/csrc/flash_attention.cu",
-              "some_tpu/ops/attention.py:61", attn_rows)]}), flush=True)
-    print(json.dumps({"main_path": main_result, "card": card}), flush=True)
+    print(json.dumps({"kernels": [entry(*k) for k in kernels]}), flush=True)
+    print(json.dumps({"main_path": main_result, "train_path": train_result,
+                      "kernel_vs_plain_train_step": agreement, "f32_overfit": overfit,
+                      "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -13,13 +13,15 @@ so the mapping is per leaf:
     buffers.
 
 Trees are nested dicts of numpy arrays (what the native checkpoint holds);
-nothing here imports JAX. The native SOME-TPU checkpoint is msgpack, read
+nothing here imports JAX. :func:`optax_state_to_torch` carries the optax
+optimizer state of a JAX training checkpoint into the torch optimizer, so a
+JAX run resumes in the port. The native SOME-TPU checkpoint is msgpack, read
 with ``msgpack`` imported inside :func:`read_native_checkpoint` only.
 """
 from __future__ import annotations
 
 import pathlib
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -148,3 +150,48 @@ def read_native_checkpoint(path: pathlib.Path | str) -> dict:
                 check(sub)
     check(payload)
     return payload
+
+
+def _find(tree, keys):
+    """The first dict in ``tree`` (depth first) that holds every key of ``keys``."""
+    if not isinstance(tree, dict):
+        return None
+    if all(k in tree for k in keys):
+        return tree
+    for sub in tree.values():
+        found = _find(sub, keys)
+        if found is not None:
+            return found
+    return None
+
+
+def optax_state_to_torch(opt_state: dict, model: nn.Module,
+                         optimizer: torch.optim.Optimizer) -> Tuple[dict, Optional[dict]]:
+    """An optax state, as a native checkpoint holds it, -> (a state_dict for
+    ``optimizer``, the gradient accumulator or None).
+
+    The state is the JAX package's chain: ``clip_by_global_norm`` (no state),
+    ``scale_by_adam`` (``count``, ``mu``, ``nu``), the decoupled decay and the
+    schedule (its count equals Adam's), possibly inside ``optax.MultiSteps``
+    (``mini_step``, ``acc_grads``, ``inner_opt_state``). ``mu`` and ``nu`` map
+    leaf by leaf like the weights (kernels transposed) onto each parameter's
+    ``exp_avg`` and ``exp_avg_sq``, ``count`` onto its ``step``; a
+    part-filled accumulation (``mini_step > 0``) comes back as
+    ``{"mini_step", "grads"}``, the running mean optax keeps."""
+    adam = _find(opt_state, ("count", "mu", "nu"))
+    if adam is None:
+        raise KeyError("no scale_by_adam state (count, mu, nu) in the optax state")
+    mu = jax_params_to_state_dict(adam["mu"])
+    nu = jax_params_to_state_dict(adam["nu"])
+    count = float(np.asarray(adam["count"]))
+    names = {p: n for n, p in model.named_parameters()}
+    sd = optimizer.state_dict()
+    flat = [p for group in optimizer.param_groups for p in group["params"]]
+    sd["state"] = {i: {"step": torch.tensor(count), "exp_avg": mu[names[p]],
+                       "exp_avg_sq": nu[names[p]]} for i, p in enumerate(flat)}
+    multi = _find(opt_state, ("mini_step", "acc_grads"))
+    accumulator = None
+    if multi is not None and int(np.asarray(multi["mini_step"])) > 0:
+        accumulator = {"mini_step": int(np.asarray(multi["mini_step"])),
+                       "grads": jax_params_to_state_dict(multi["acc_grads"])}
+    return sd, accumulator

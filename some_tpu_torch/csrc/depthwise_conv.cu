@@ -1,4 +1,5 @@
-// Depthwise temporal convolution, forward: the conformer's k=31 'SAME' conv on Hopper.
+// Depthwise temporal convolution, forward and weight gradient: the conformer's k=31 'SAME' conv
+// on Hopper.
 //
 // Replaces the Pallas TPU kernel some_tpu/ops/depthwise.py::_dw_kernel (launched by
 // _pallas_depthwise_strided). It computes
@@ -19,7 +20,19 @@
 //
 // Every product and every sum is rounded on its own (no fused multiply-add), in tap order:
 // that is the arithmetic of the plain PyTorch version in some_tpu_torch/ops/depthwise.py, so
-// the two agree bit for bit.
+// the two agree bit for bit. The input gradient is this same kernel on the output's cotangent
+// with the taps flipped in time, as the JAX package's custom VJP does (depthwise.py:126).
+//
+// Weight gradient (some_depthwise_conv1d_dw), the XLA reduction of the JAX custom VJP
+// (some_tpu/ops/depthwise.py:127-135):
+//     dw[tap, c] = sum_{b, t} x[b, t + tap - (K - 1) / 2, c] * g[b, t, c]
+// in f32, cast to the input dtype. Bound: device memory (2 K flops per element of x and g read).
+// Pass 1: a block covers 128 time rows x 128 channels of one batch row, stages the
+// (128 + K - 1)-row window of x in shared memory (zero halo, as the forward), and each thread
+// keeps the K f32 partial sums of its channel in registers, walking its rows in order with the
+// same 8-row register window as the forward; it writes them to a partials buffer
+// [B * ceil(T / 128), K, C]. Pass 2 sums the partials of each (tap, channel) in a fixed order.
+// No atomics, so two runs give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -87,6 +100,89 @@ depthwise_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __rest
   }
 }
 
+constexpr int kTileDW = 128;
+constexpr int kChunkDW = 128;
+
+template <typename T, int K>
+__global__ void __launch_bounds__(kChunkDW)
+depthwise_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                            float* __restrict__ partial, int t_len, int channels) {
+  constexpr int kHalf = (K - 1) / 2;
+  constexpr int kStaged = kTileDW + K - 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tile = reinterpret_cast<T*>(smem_raw);
+
+  const int t0 = blockIdx.x * kTileDW;
+  const int c0 = blockIdx.y * kChunkDW;
+  const size_t batch_offset = static_cast<size_t>(blockIdx.z) * t_len * channels;
+  const T* xb = x + batch_offset;
+  const T* gb = g + batch_offset;
+
+  for (int i = threadIdx.x; i < kStaged * kChunkDW; i += kChunkDW) {
+    const int t = t0 - kHalf + i / kChunkDW;
+    const int c = c0 + i % kChunkDW;
+    T value = from_float<T>(0.0f);
+    if (t >= 0 && t < t_len && c < channels) value = xb[static_cast<size_t>(t) * channels + c];
+    tile[i] = value;
+  }
+  __syncthreads();
+
+  const int cc = threadIdx.x;
+  const int c = c0 + cc;
+  if (c >= channels) return;
+  float acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.0f;
+  for (int r0 = 0; r0 < kTileDW && t0 + r0 < t_len; r0 += kRows) {
+    float window[kRows + K - 1];
+#pragma unroll
+    for (int i = 0; i < kRows + K - 1; ++i) window[i] = to_float(tile[(r0 + i) * kChunkDW + cc]);
+    float gv[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int t = t0 + r0 + r;
+      gv[r] = t < t_len ? to_float(gb[static_cast<size_t>(t) * channels + c]) : 0.0f;
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int k = 0; k < K; ++k) acc[k] = fmaf(window[r + k], gv[r], acc[k]);
+  }
+  const size_t part = static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x;
+  float* out = partial + part * K * channels;
+#pragma unroll
+  for (int k = 0; k < K; ++k) out[static_cast<size_t>(k) * channels + c] = acc[k];
+}
+
+template <typename T>
+__global__ void depthwise_dw_reduce_kernel(const float* __restrict__ partial, T* __restrict__ dw,
+                                           int n_parts, int n_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_out) return;
+  float sum = 0.0f;
+  for (int p = 0; p < n_parts; ++p) sum += partial[static_cast<size_t>(p) * n_out + i];
+  dw[i] = from_float<T>(sum);
+}
+
+template <typename T, int K>
+cudaError_t launch_dw(const void* x, const void* g, float* partial, void* dw, int batch,
+                      int t_len, int channels, cudaStream_t stream) {
+  const int smem = (kTileDW + K - 1) * kChunkDW * static_cast<int>(sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(depthwise_dw_partial_kernel<T, K>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (t_len + kTileDW - 1) / kTileDW;
+  const dim3 grid(n_tiles, (channels + kChunkDW - 1) / kChunkDW, batch);
+  depthwise_dw_partial_kernel<T, K><<<grid, kChunkDW, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), partial, t_len, channels);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n_out = K * channels;
+  depthwise_dw_reduce_kernel<T><<<(n_out + 255) / 256, 256, 0, stream>>>(
+      partial, static_cast<T*>(dw), batch * n_tiles, n_out);
+  return cudaGetLastError();
+}
+
 template <typename T, int K>
 cudaError_t launch(const void* x, const void* w, void* y, int batch, int t_len, int channels,
                    cudaStream_t stream) {
@@ -98,6 +194,20 @@ cudaError_t launch(const void* x, const void* w, void* y, int batch, int t_len, 
   depthwise_fwd_kernel<T, K><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), t_len, channels);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_taps_dw(int taps, const void* x, const void* g, float* partial, void* dw,
+                             int batch, int t_len, int channels, cudaStream_t stream) {
+  switch (taps) {
+#define SOME_DW_CASE(K) \
+  case K:               \
+    return launch_dw<T, K>(x, g, partial, dw, batch, t_len, channels, stream);
+    SOME_DW_CASE(7) SOME_DW_CASE(31)
+#undef SOME_DW_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -128,5 +238,22 @@ extern "C" int some_depthwise_conv1d_fwd(const void* x, const void* w, void* y, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_taps<float>(taps, x, w, y, batch, t_len, channels, s);
   if (dtype == 1) return dispatch_taps<__nv_bfloat16>(taps, x, w, y, batch, t_len, channels, s);
+  return cudaErrorInvalidValue;
+}
+
+// The weight gradient. x, g: [batch, t_len, channels] contiguous, of one dtype (0 = float32,
+// 1 = bfloat16); dw: [taps, channels] of that dtype; partial: f32 scratch of
+// batch * ceil(t_len / 128) * taps * channels elements. taps is 31 or 7. Launches two kernels
+// on `stream` and returns cudaGetLastError() (0 on success); it does not synchronise.
+extern "C" int some_depthwise_conv1d_dw(const void* x, const void* g, float* partial, void* dw,
+                                        int batch, int t_len, int channels, int taps, int dtype,
+                                        void* stream) {
+  if (batch < 0 || t_len < 0 || channels < 0 || batch > 65535) return cudaErrorInvalidValue;
+  if (batch == 0 || t_len == 0 || channels == 0) return cudaErrorInvalidValue;
+  if ((channels + kChunkDW - 1) / kChunkDW > 65535) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_taps_dw<float>(taps, x, g, partial, dw, batch, t_len, channels, s);
+  if (dtype == 1)
+    return dispatch_taps_dw<__nv_bfloat16>(taps, x, g, partial, dw, batch, t_len, channels, s);
   return cudaErrorInvalidValue;
 }

@@ -20,42 +20,29 @@
 // last tile) score -inf and drop out; queries past T are computed and not stored. Inputs are
 // read through their strides, so q, k and v may be views into the projections' [B, T, H, D]
 // outputs.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+//
+// Training forward (some_flash_attention_fwd_stats): the same function plus the row statistics
+// the backward needs, m (the row max of the scores) and l (the sum of exp(score - m), taken from
+// the probabilities before they are rounded), as f32 [B, H, T, 2]. It makes two passes over the
+// keys: the first finds m and l, the second multiplies v with p = round(exp(score - m) / l), the
+// normalized probability rounded to the input dtype, exactly as the plain version rounds its
+// softmax. So the backward (flash_attention_bwd.cu) rebuilds bit for bit the P this kernel
+// multiplied with v. One log-sum-exp per row would not do: in a batch-padding row m is -1e9 and
+// -1e9 + log(T) rounds back to -1e9 in f32, which would turn the uniform 1/T into 1. The second
+// pass costs one more Q K^T product than the inference kernel; the inference path does not pay it.
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 128;
-constexpr int kQStride = kBQ + 4;  // rows of Q^T and P^T: 16-byte aligned for float4 access
-constexpr int kKStride = kBK + 1;  // rows of K^T: odd, so the transposing stores spread over banks
-constexpr float kMaskedScore = -1e9f;
+using namespace some_flash;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// The probabilities in the input dtype, as f32 for the product with v.
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_float(from_float<T>(v));
-}
+constexpr int kQStride = kVecStride;  // rows of Q^T and P^T: 16-byte aligned for float4 access
+constexpr int kKStride = kOddStride;  // rows of K^T: odd, so the transposing stores spread over banks
 
 template <int D>
 constexpr int smem_floats() {
   return D * kQStride + D * kKStride + kBK * D + kBK * kQStride + kBK;
 }
-
-struct Strides {
-  long long b, h, t;
-};
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -203,33 +190,200 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                       const uint8_t* __restrict__ mask, T* __restrict__ out,
+                       float* __restrict__ stats, int t_len, Strides qs, Strides ks, Strides vs_,
+                       Strides os, float scale) {
+  constexpr int kDT = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* qt = smem;                      // [D][kQStride]  Q^T
+  float* kt = qt + D * kQStride;         // [D][kKStride]  K^T
+  float* vt = kt + D * kKStride;         // [kBK][D]       V
+  float* pt = vt + kBK * D;              // [kBK][kQStride] P^T
+  int* key_code = reinterpret_cast<int*>(pt + kBK * kQStride);
+
+  const int tid = threadIdx.x;
+  const int tq = tid >> 3;  // query rows 4 * tq .. 4 * tq + 3
+  const int tk = tid & 7;   // key columns and output columns tk + 8 * j
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + h * ks.h;
+  const T* vb = v + b * vs_.b + h * vs_.h;
+  T* ob = out + b * os.b + h * os.h;
+  const uint8_t* mb = mask ? mask + static_cast<size_t>(b) * t_len : nullptr;
+  const int n_tiles = (t_len + kBK - 1) / kBK;
+
+  stage_transposed<T, D>(qt, kQStride, qb, qs.t, q0, t_len);
+
+  // pass 1: the row max m and l = sum exp(score - m), online over the key tiles
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.0f;
+  }
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * kBK;
+    __syncthreads();
+    stage_transposed<T, D>(kt, kKStride, kb, ks.t, k0, t_len);
+    stage_key_codes(key_code, mb, k0, t_len);
+    __syncthreads();
+    float s[4][8] = {};
+    tile_dot<D>(qt, 4 * tq, kt, tk, s);
+    float tile_max[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int code = key_code[tk + 8 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i][j] = masked_score(s[i][j], code, scale);
+        tile_max[i] = fmaxf(tile_max[i], s[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int offset = 1; offset < 8; offset <<= 1)
+        tile_max[i] = fmaxf(tile_max[i], __shfl_xor_sync(0xffffffffu, tile_max[i], offset));
+      const float m_new = fmaxf(m[i], tile_max[i]);  // finite: every tile has a key below T
+      l[i] *= expf(m[i] - m_new);                    // 0 on the first tile
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) l[i] += expf(__fsub_rn(s[i][j], m_new));
+    }
+  }
+  float inv_l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int offset = 1; offset < 8; offset <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], offset);
+    inv_l[i] = 1.0f / l[i];
+  }
+
+  // pass 2: out = sum round(p) v with p normalized
+  float acc[4][kDT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kDT; ++j) acc[i][j] = 0.0f;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * kBK;
+    __syncthreads();  // the previous tile's reads of K, V and P are done
+    stage_transposed<T, D>(kt, kKStride, kb, ks.t, k0, t_len);
+    for (int i = tid; i < kBK * D; i += kThreads) {
+      const int r = i / D, d = i % D;
+      const int t = k0 + r;
+      vt[r * D + d] = t < t_len ? to_float(vb[t * vs_.t + d]) : 0.0f;
+    }
+    stage_key_codes(key_code, mb, k0, t_len);
+    __syncthreads();
+    float s[4][8] = {};
+    tile_dot<D>(qt, 4 * tq, kt, tk, s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int code = key_code[tk + 8 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        s[i][j] = round_to<T>(prob(masked_score(s[i][j], code, scale), m[i], inv_l[i]));
+      *reinterpret_cast<float4*>(&pt[(tk + 8 * j) * kQStride + 4 * tq]) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 pv = *reinterpret_cast<const float4*>(&pt[kk * kQStride + 4 * tq]);
+      float vv[kDT];
+#pragma unroll
+      for (int j = 0; j < kDT; ++j) vv[j] = vt[kk * D + tk + 8 * j];
+#pragma unroll
+      for (int j = 0; j < kDT; ++j) {
+        acc[0][j] = fmaf(pv.x, vv[j], acc[0][j]);
+        acc[1][j] = fmaf(pv.y, vv[j], acc[1][j]);
+        acc[2][j] = fmaf(pv.z, vv[j], acc[2][j]);
+        acc[3][j] = fmaf(pv.w, vv[j], acc[3][j]);
+      }
+    }
+  }
+
+  const size_t row0 = (static_cast<size_t>(b) * gridDim.y + h) * t_len;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = q0 + 4 * tq + i;
+    if (t < t_len) {
+#pragma unroll
+      for (int j = 0; j < kDT; ++j) ob[t * os.t + tk + 8 * j] = from_float<T>(acc[i][j]);
+      if (tk == 0) {
+        stats[(row0 + t) * 2] = m[i];
+        stats[(row0 + t) * 2 + 1] = l[i];
+      }
+    }
+  }
+}
+
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
-                   int batch, int heads, int t_len, Strides qs, Strides ks, Strides vs_,
-                   Strides os, float scale, cudaStream_t stream) {
+                   float* stats, int batch, int heads, int t_len, Strides qs, Strides ks,
+                   Strides vs_, Strides os, float scale, cudaStream_t stream) {
   const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((t_len + kBQ - 1) / kBQ, heads, batch);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(out), t_len, qs, ks, vs_, os, scale);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const uint8_t* mp = static_cast<const uint8_t*>(mask);
+  T* op = static_cast<T*>(out);
+  cudaError_t err;
+  if (stats == nullptr) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(qp, kp, vp, mp, op, t_len, qs, ks,
+                                                            vs_, os, scale);
+  } else {
+    err = cudaFuncSetAttribute(flash_fwd_stats_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    flash_fwd_stats_kernel<T, D><<<grid, kThreads, smem, stream>>>(qp, kp, vp, mp, op, stats,
+                                                                  t_len, qs, ks, vs_, os, scale);
+  }
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_head_dim(int head_dim, const void* q, const void* k, const void* v,
-                              const void* mask, void* out, int batch, int heads, int t_len,
-                              Strides qs, Strides ks, Strides vs_, Strides os, float scale,
-                              cudaStream_t stream) {
+                              const void* mask, void* out, float* stats, int batch, int heads,
+                              int t_len, Strides qs, Strides ks, Strides vs_, Strides os,
+                              float scale, cudaStream_t stream) {
   if (head_dim == 64)
-    return launch<T, 64>(q, k, v, mask, out, batch, heads, t_len, qs, ks, vs_, os, scale, stream);
+    return launch<T, 64>(q, k, v, mask, out, stats, batch, heads, t_len, qs, ks, vs_, os, scale,
+                         stream);
   if (head_dim == 32)
-    return launch<T, 32>(q, k, v, mask, out, batch, heads, t_len, qs, ks, vs_, os, scale, stream);
+    return launch<T, 32>(q, k, v, mask, out, stats, batch, heads, t_len, qs, ks, vs_, os, scale,
+                         stream);
   return cudaErrorInvalidValue;
 }
 
-Strides strides_of(const long long* s) { return Strides{s[0], s[1], s[2]}; }
+int forward(const void* q, const void* k, const void* v, const void* mask, void* out,
+            float* stats, int batch, int heads, int t_len, int head_dim,
+            const long long* q_strides, const long long* k_strides, const long long* v_strides,
+            const long long* o_strides, float scale, int dtype, void* stream) {
+  if (batch < 0 || heads < 0 || t_len < 0 || batch > 65535 || heads > 65535)
+    return cudaErrorInvalidValue;
+  if (batch == 0 || heads == 0 || t_len == 0) return cudaSuccess;
+  const Strides qs = strides_of(q_strides), ks = strides_of(k_strides);
+  const Strides vs_ = strides_of(v_strides), os = strides_of(o_strides);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_head_dim<float>(head_dim, q, k, v, mask, out, stats, batch, heads, t_len, qs,
+                                    ks, vs_, os, scale, s);
+  if (dtype == 1)
+    return dispatch_head_dim<__nv_bfloat16>(head_dim, q, k, v, mask, out, stats, batch, heads,
+                                            t_len, qs, ks, vs_, os, scale, s);
+  return cudaErrorInvalidValue;
+}
 
 }  // namespace
 
@@ -244,17 +398,21 @@ extern "C" int some_flash_attention_fwd(const void* q, const void* k, const void
                                         const long long* k_strides, const long long* v_strides,
                                         const long long* o_strides, float scale, int dtype,
                                         void* stream) {
-  if (batch < 0 || heads < 0 || t_len < 0 || batch > 65535 || heads > 65535)
-    return cudaErrorInvalidValue;
-  if (batch == 0 || heads == 0 || t_len == 0) return cudaSuccess;
-  const Strides qs = strides_of(q_strides), ks = strides_of(k_strides);
-  const Strides vs_ = strides_of(v_strides), os = strides_of(o_strides);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_head_dim<float>(head_dim, q, k, v, mask, out, batch, heads, t_len, qs, ks,
-                                    vs_, os, scale, s);
-  if (dtype == 1)
-    return dispatch_head_dim<__nv_bfloat16>(head_dim, q, k, v, mask, out, batch, heads, t_len,
-                                            qs, ks, vs_, os, scale, s);
-  return cudaErrorInvalidValue;
+  return forward(q, k, v, mask, out, nullptr, batch, heads, t_len, head_dim, q_strides,
+                 k_strides, v_strides, o_strides, scale, dtype, stream);
+}
+
+// The training forward: as some_flash_attention_fwd, and writes the row statistics (m, l) of
+// every query to stats, f32 [batch, heads, t_len, 2] contiguous (see the note at the top).
+extern "C" int some_flash_attention_fwd_stats(const void* q, const void* k, const void* v,
+                                              const void* mask, void* out, float* stats,
+                                              int batch, int heads, int t_len, int head_dim,
+                                              const long long* q_strides,
+                                              const long long* k_strides,
+                                              const long long* v_strides,
+                                              const long long* o_strides, float scale, int dtype,
+                                              void* stream) {
+  if (stats == nullptr) return cudaErrorInvalidValue;
+  return forward(q, k, v, mask, out, stats, batch, heads, t_len, head_dim, q_strides, k_strides,
+                 v_strides, o_strides, scale, dtype, stream);
 }

@@ -1,9 +1,19 @@
-"""Dual-stream conformer backbone, inference (eval) path.
+"""Dual-stream conformer backbone, eval and train modes.
 
 Counterpart of ``some_tpu/nn/conformer.py``. Module and parameter names
 follow the flax tree (``layer_0.midi_block.ffn1.fc1`` ...), so
 ``some_tpu_torch/compat/from_jax.py`` maps one onto the other leaf by leaf.
-Dropout is inference-off and not built.
+Eval mode (``model.eval()``) is the inference path; everything training
+adds is gated on ``self.training``:
+
+  * dropout at the JAX sites (the FFN latent and output, the attention
+    output, the conv module's output), each mask drawn from a generator
+    seeded by (seed, step, site) (see :class:`Dropout`);
+  * BatchNorm statistics over the real frames, and the running update;
+  * with ``remat``, each dual-stream layer under
+    ``torch.utils.checkpoint`` (``nn.remat`` in the JAX package). The
+    recompute draws the same dropout masks and does not update the running
+    statistics a second time.
 
 Parameters stay float32; computation runs in ``dtype`` with the JAX
 package's precision contract:
@@ -27,6 +37,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from some_tpu_torch.ops.attention import attention_bhtd
 from some_tpu_torch.ops.depthwise import depthwise_conv1d
@@ -39,6 +50,40 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
 def _glu(x: torch.Tensor) -> torch.Tensor:
     out, gate = x.chunk(2, dim=-1)
     return out * torch.sigmoid(gate)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: keep with probability 1 - rate, scale what is kept
+    by 1 / (1 - rate). The mask comes from a generator seeded by the seed and
+    step of :func:`set_dropout_step` and the module's ``site`` (its index
+    among the model's dropouts), the counterpart of the JAX package's
+    ``fold_in(base_rng, step)``: the remat recompute draws the same mask, and
+    no global RNG state is read. The bits differ from JAX's."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.site = 0
+        self.seed_step = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.seed_step is None:
+            raise RuntimeError("a training forward needs set_dropout_step(model, seed, step)")
+        seed, step = self.seed_step
+        gen = torch.Generator(device=x.device)
+        gen.manual_seed(((seed * 1_000_003 + step) * 10_007 + self.site) % (1 << 63))
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def set_dropout_step(model: nn.Module, seed: int, step: int) -> None:
+    """Number the model's dropouts and key their masks to (seed, step)."""
+    for site, module in enumerate(m for m in model.modules() if isinstance(m, Dropout)):
+        module.site = site
+        module.seed_step = (int(seed), int(step))
 
 
 class QDense(nn.Linear):
@@ -75,15 +120,18 @@ class LayerNorm(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """dim -> 4*dim -> dim with SiLU."""
+    """dim -> 4*dim -> dim with SiLU, dropout on the latent and the output."""
 
-    def __init__(self, dim: int, dtype: torch.dtype):
+    def __init__(self, dim: int, dtype: torch.dtype, latent_drop: float = 0.0,
+                 out_drop: float = 0.0):
         super().__init__()
         self.fc1 = QDense(dim, dim * 4, dtype=dtype)
+        self.latent_drop = Dropout(latent_drop)
         self.fc2 = QDense(dim * 4, dim, dtype=dtype)
+        self.out_drop = Dropout(out_drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(_silu(self.fc1(x)))
+        return self.out_drop(self.fc2(self.latent_drop(_silu(self.fc1(x)))))
 
 
 class SelfAttention(nn.Module):
@@ -134,8 +182,13 @@ class DepthwiseConv1d(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over (batch, time) in eval mode: the running stats, an f32
-    elementwise affine. Training statistics come with the training slice."""
+    """BatchNorm over (batch, time), in f32. Eval: the running statistics.
+    Train: the mean and the biased variance over the frames ``mask`` marks
+    real (all frames without a mask), and the running update in flax's
+    convention, ``ra = 0.9 ra + 0.1 new``, with the unbiased variance, as
+    the JAX ``MaskedBatchNorm`` does; not again in a remat recompute."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -144,22 +197,44 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.eps = eps
+        #: set while torch.utils.checkpoint recomputes the layer (see _Recompute)
+        self.recomputing = False
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = (x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        xf = x.float()
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            if mask is not None:
+                w = mask.float()[..., None]
+                count = torch.clamp(w.sum(), min=1.0)
+                mean = (xf * w).sum(dim=(0, 1)) / count
+                var = (((xf - mean) ** 2) * w).sum(dim=(0, 1)) / count
+            else:
+                count = torch.tensor(float(xf.shape[0] * xf.shape[1]), device=x.device)
+                mean = xf.mean(dim=(0, 1))
+                var = xf.var(dim=(0, 1), unbiased=False)
+            if not self.recomputing:
+                with torch.no_grad():
+                    var_unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+                    m = self.MOMENTUM
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var_unbiased)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
 
 
 class ConvModule(nn.Module):
     """pointwise -> GLU -> mask -> depthwise -> BN -> SiLU -> pointwise."""
 
-    def __init__(self, dim: int, kernel_size: int, dtype: torch.dtype):
+    def __init__(self, dim: int, kernel_size: int, dtype: torch.dtype, drop: float = 0.0):
         super().__init__()
         self.compute_dtype = dtype
         self.pw1 = QDense(dim, 2 * dim, dtype=dtype)
         self.dw = DepthwiseConv1d(dim, kernel_size, dtype)
         self.bn = MaskedBatchNorm(dim)
         self.pw2 = QDense(dim, dim, dtype=dtype)
+        self.drop = Dropout(drop)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = _glu(self.pw1(x))
@@ -167,29 +242,32 @@ class ConvModule(nn.Module):
             # padded frames become exact zeros, the implicit zero padding the
             # depthwise conv sees on an unpadded sequence
             x = torch.where(mask[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
-        x = self.bn(self.dw(x))
-        return self.pw2(_silu(x).to(self.compute_dtype))
+        x = self.bn(self.dw(x), mask)
+        return self.drop(self.pw2(_silu(x).to(self.compute_dtype)))
 
 
 class ConformerBlock(nn.Module):
     """Macaron block: x0.5 FFN -> MHSA -> conv module -> x0.5 FFN -> LN."""
 
     def __init__(self, dim: int, kernel_size: int, heads: int, head_dim: int,
-                 dtype: torch.dtype, attn_impl: str = "auto"):
+                 dtype: torch.dtype, attn_impl: str = "auto", conv_drop: float = 0.0,
+                 ffn_latent_drop: float = 0.0, ffn_out_drop: float = 0.0,
+                 attention_drop: float = 0.0):
         super().__init__()
         self.norm1 = LayerNorm(dim, dtype)
-        self.ffn1 = FeedForward(dim, dtype)
+        self.ffn1 = FeedForward(dim, dtype, ffn_latent_drop, ffn_out_drop)
         self.norm2 = LayerNorm(dim, dtype)
         self.attn = SelfAttention(dim, heads, head_dim, dtype, attn_impl)
+        self.attn_drop = Dropout(attention_drop)
         self.norm3 = LayerNorm(dim, dtype)
-        self.conv = ConvModule(dim, kernel_size, dtype)
+        self.conv = ConvModule(dim, kernel_size, dtype, conv_drop)
         self.norm4 = LayerNorm(dim, dtype)
-        self.ffn2 = FeedForward(dim, dtype)
+        self.ffn2 = FeedForward(dim, dtype, ffn_latent_drop, ffn_out_drop)
         self.norm5 = LayerNorm(dim, dtype)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = self.ffn1(self.norm1(x)) * 0.5 + x
-        x = self.attn(self.norm2(x), mask) + x
+        x = self.attn_drop(self.attn(self.norm2(x), mask)) + x
         x = self.conv(self.norm3(x), mask) + x
         x = self.ffn2(self.norm4(x)) * 0.5 + x
         return self.norm5(x)
@@ -213,6 +291,29 @@ class DualStreamBlock(nn.Module):
         return midi + bound_msg, bound + midi_msg
 
 
+class _Recompute:
+    """The function torch.utils.checkpoint runs for one layer: its first
+    call is the forward, any later call the recompute in the backward, run
+    with the layer's BatchNorms marked ``recomputing``."""
+
+    def __init__(self, layer: nn.Module):
+        self.layer = layer
+        self.calls = 0
+
+    def __call__(self, *args):
+        self.calls += 1
+        if self.calls == 1:
+            return self.layer(*args)
+        norms = [m for m in self.layer.modules() if isinstance(m, MaskedBatchNorm)]
+        for m in norms:
+            m.recomputing = True
+        try:
+            return self.layer(*args)
+        finally:
+            for m in norms:
+                m.recomputing = False
+
+
 class MidiConformer(nn.Module):
     """In-projections, ``lay`` dual-stream layers, a final block per stream,
     the midi head and the sigmoid boundary head.
@@ -222,13 +323,19 @@ class MidiConformer(nn.Module):
     def __init__(self, lay: int, dim: int, indim: int, outdim: int, kernel_size: int = 31,
                  attention_heads: int = 4, attention_heads_dim: int = 64,
                  dtype: torch.dtype = torch.float32, mask_attention: bool = True,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", conv_drop: float = 0.0, ffn_latent_drop: float = 0.0,
+                 ffn_out_drop: float = 0.0, attention_drop: float = 0.0, remat: bool = True,
+                 remat_policy: str = "nothing"):
         super().__init__()
         self.lay = lay
         self.mask_attention = mask_attention
         self.compute_dtype = dtype
+        self.remat = remat
+        self.remat_policy = remat_policy
         block_args = dict(kernel_size=kernel_size, heads=attention_heads,
-                          head_dim=attention_heads_dim, attn_impl=attn_impl)
+                          head_dim=attention_heads_dim, attn_impl=attn_impl,
+                          conv_drop=conv_drop, ffn_latent_drop=ffn_latent_drop,
+                          ffn_out_drop=ffn_out_drop, attention_drop=attention_drop)
         self.in_proj_midi = QDense(indim, dim, dtype=dtype)
         self.in_proj_bound = QDense(indim, dim, dtype=dtype)
         for i in range(lay):
@@ -248,8 +355,18 @@ class MidiConformer(nn.Module):
             midi = torch.where(mask[..., None], midi, zero)
         # the dual-stream layers take `mask` and the final blocks `attn_mask`,
         # as in the JAX package
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        if remat and self.remat_policy != "nothing":
+            raise NotImplementedError(
+                f"remat_policy {self.remat_policy!r}: only 'nothing' (recompute the whole "
+                "layer) is ported: see ROADMAP.md")
         for i in range(self.lay):
-            midi, bound = getattr(self, f"layer_{i}")(midi, bound, mask)
+            layer = getattr(self, f"layer_{i}")
+            if remat:
+                midi, bound = checkpoint(_Recompute(layer), midi, bound, mask,
+                                         use_reentrant=False)
+            else:
+                midi, bound = layer(midi, bound, mask)
             if mask is not None:
                 midi = torch.where(mask[..., None], midi, zero)
         midi = self.final_midi(midi, attn_mask)

@@ -13,21 +13,22 @@ from torch import nn
 
 from some_tpu_torch.nn.conformer import MidiConformer
 
-# config keys of midi_extractor_args that only training reads
-_TRAINING_ONLY = ("use_lay_skip", "conv_drop", "ffn_latent_drop", "ffn_out_drop",
-                  "attention_drop")
-
-
 class MidiExtractor(nn.Module):
     def __init__(self, lay: int, dim: int, indim: int, outdim: int, kernel_size: int = 31,
                  attention_heads: int = 4, attention_heads_dim: int = 64,
                  dtype: torch.dtype = torch.float32, mask_attention: bool = True,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", use_lay_skip: bool = True, conv_drop: float = 0.1,
+                 ffn_latent_drop: float = 0.1, ffn_out_drop: float = 0.1,
+                 attention_drop: float = 0.1, remat: bool = True,
+                 remat_policy: str = "nothing"):
         super().__init__()
+        del use_lay_skip  # stored but unused, as in the reference
         self.backbone = MidiConformer(
             lay=lay, dim=dim, indim=indim, outdim=outdim, kernel_size=kernel_size,
             attention_heads=attention_heads, attention_heads_dim=attention_heads_dim,
-            dtype=dtype, mask_attention=mask_attention, attn_impl=attn_impl)
+            dtype=dtype, mask_attention=mask_attention, attn_impl=attn_impl,
+            conv_drop=conv_drop, ffn_latent_drop=ffn_latent_drop, ffn_out_drop=ffn_out_drop,
+            attention_drop=attention_drop, remat=remat, remat_policy=remat_policy)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 softmax: bool = False, sig: bool = False):
@@ -41,9 +42,9 @@ class MidiExtractor(nn.Module):
 
 def build_midi_extractor(config: dict, dtype: torch.dtype = torch.float32,
                          mask_attention: bool = True) -> MidiExtractor:
-    """The model of a SOME config: ``midi_extractor_args`` plus ``units_dim``,
-    ``midi_num_bins`` and ``attention_impl``. The dropout rates and
-    ``use_lay_skip`` are training keys and are not read. Opt-in features
+    """The model of a SOME config: ``midi_extractor_args`` (the dropout
+    rates among them) plus ``units_dim``, ``midi_num_bins``,
+    ``attention_impl``, ``use_remat`` and ``remat_policy``. Opt-in features
     still to be ported raise."""
     if str(config.get("quantize", "none")) != "none":
         raise NotImplementedError("quantize: int8 is still to be ported: see ROADMAP.md")
@@ -52,7 +53,9 @@ def build_midi_extractor(config: dict, dtype: torch.dtype = torch.float32,
             "fuse_ffn (the JAX package's fused LN->FFN kernel, K3) is still to be "
             "ported: see ROADMAP.md, queue 2")
     args = {k: v for k, v in config["midi_extractor_args"].items()
-            if k not in _TRAINING_ONLY + ("indim", "outdim")}
+            if k not in ("indim", "outdim")}
     return MidiExtractor(indim=config["units_dim"], outdim=config["midi_num_bins"],
                          dtype=dtype, mask_attention=mask_attention,
-                         attn_impl=config.get("attention_impl", "auto"), **args)
+                         attn_impl=config.get("attention_impl", "auto"),
+                         remat=bool(config.get("use_remat", True)),
+                         remat_policy=str(config.get("remat_policy", "nothing")), **args)

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 by ``nvcc`` for Hopper (``sm_90a``) into ``build/<name>-<hash>.so`` at the
-repository root, then bound with ``ctypes``. The hash covers the source and
-the flags, so an edited source rebuilds and an unchanged one is reused.
+repository root, then bound with ``ctypes``. The hash covers the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source or header
+rebuilds and an unchanged one is reused.
 ``build()`` starts one ``nvcc`` per source, all at once, and waits for them.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; callers
@@ -25,7 +26,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("depthwise_conv", "flash_attention")
+SOURCES = ("depthwise_conv", "flash_attention", "flash_attention_bwd")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -46,6 +47,8 @@ def nvcc_path() -> str:
 def library_path(name: str) -> pathlib.Path:
     """Where the library built from ``csrc/<name>.cu`` with NVCC_FLAGS lives."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
@@ -98,3 +101,18 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if a kernel launch would cut the autograd graph.
+
+    A launch writes into a fresh tensor through ctypes, so its output has no
+    ``grad_fn``. Each raw launch calls this first: inside a
+    ``torch.autograd.Function`` (whose forward runs with grad disabled) and
+    on the no-grad paths it passes; anywhere else a tensor that needs a
+    gradient raises instead of silently getting none."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} has no backward on this path: route it through its "
+                           "autograd.Function")

@@ -1,9 +1,16 @@
-"""Checkpoint files of the port.
+"""Checkpoint files of the port: the one writer and the one reader.
 
-The port's own format is ``torch.save`` of ``{"format": FORMAT, "meta": ...,
-"state_dict": ...}``, loaded with ``weights_only=True``. A native SOME-TPU
-checkpoint (flax msgpack) is read and carried across with
-``compat/from_jax.py``. A reference Lightning ``.ckpt`` is a later slice.
+The port's own format is ``torch.save`` of::
+
+    {"format": FORMAT,
+     "meta": {...}  (a training checkpoint: step, micro_step, epoch, epoch_batch),
+     "state_dict": the model's (BatchNorm running statistics included),
+     "optimizer": the torch optimizer's state_dict, or None,
+     "accumulator": {"mini_step", "grads"}, or None}
+
+loaded with ``weights_only=True``. A native SOME-TPU checkpoint (flax
+msgpack) is read and carried across with ``compat/from_jax.py``. A reference
+Lightning ``.ckpt`` is a later slice.
 """
 from __future__ import annotations
 
@@ -15,20 +22,33 @@ import torch
 FORMAT = "some-tpu-torch-v1"
 
 
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
 def save_checkpoint(path: pathlib.Path | str, state_dict: Dict[str, torch.Tensor],
-                    meta: dict | None = None) -> pathlib.Path:
+                    meta: dict | None = None, optimizer: dict | None = None,
+                    accumulator: dict | None = None) -> pathlib.Path:
     path = pathlib.Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    payload = {"format": FORMAT, "meta": dict(meta or {}),
-               "state_dict": {k: v.detach().cpu() for k, v in state_dict.items()}}
+    payload = {"format": FORMAT, "meta": dict(meta or {}), "state_dict": _to_cpu(state_dict),
+               "optimizer": _to_cpu(optimizer), "accumulator": _to_cpu(accumulator)}
     tmp = path.with_suffix(path.suffix + ".tmp")
     torch.save(payload, tmp)
     tmp.replace(path)
     return path
 
 
-def load_state_dict(path: pathlib.Path | str) -> Dict[str, torch.Tensor]:
-    """The port's state_dict from either checkpoint format."""
+def load_checkpoint(path: pathlib.Path | str) -> dict:
+    """A port checkpoint as saved, or a native JAX checkpoint as
+    ``{"format": "jax", "meta", "params", "batch_stats", "opt_state"}``
+    (nested numpy dicts, for ``compat/from_jax.py``)."""
     path = pathlib.Path(path)
     with open(path, "rb") as f:
         magic = f.read(2)
@@ -38,8 +58,19 @@ def load_state_dict(path: pathlib.Path | str) -> Dict[str, torch.Tensor]:
             raise NotImplementedError(
                 f"{path} is a torch checkpoint but not the port's own format; "
                 "loading reference Lightning .ckpt files is still to port: see ROADMAP.md")
-        return payload["state_dict"]
-    from some_tpu_torch.compat.from_jax import jax_params_to_state_dict, read_native_checkpoint
+        return payload
+    from some_tpu_torch.compat.from_jax import read_native_checkpoint
 
     ckpt = read_native_checkpoint(path)
-    return jax_params_to_state_dict(ckpt["params"], ckpt.get("batch_stats") or {})
+    return {"format": "jax", "meta": ckpt.get("meta") or {}, "params": ckpt["params"],
+            "batch_stats": ckpt.get("batch_stats") or {}, "opt_state": ckpt.get("opt_state")}
+
+
+def load_state_dict(path: pathlib.Path | str) -> Dict[str, torch.Tensor]:
+    """The port's state_dict from either checkpoint format."""
+    ckpt = load_checkpoint(path)
+    if ckpt["format"] != "jax":
+        return ckpt["state_dict"]
+    from some_tpu_torch.compat.from_jax import jax_params_to_state_dict
+
+    return jax_params_to_state_dict(ckpt["params"], ckpt["batch_stats"])

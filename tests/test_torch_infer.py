@@ -121,7 +121,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'some_tpu', 'yaml', 'click', 'msgpack'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'some_tpu', 'yaml', 'click', 'msgpack', "
+        "'h5py', 'tensorboardX', 'matplotlib'))\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('some_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
