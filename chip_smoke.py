@@ -7,15 +7,24 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. device: requires CUDA, prints the card's name and power limit;
-  2. build: compiles every kernel under some_tpu_torch/csrc with nvcc;
-  3. K1 (depthwise conv) against its plain version, bf16 and f32;
-  4. K2 (flash attention) against its plain version, bf16 and f32;
-  5. the main path: ``some_tpu_torch.infer`` at production geometry
+  2. build: compiles every kernel under some_tpu_torch/csrc with nvcc, all
+     sources at once, and prints each one's registers and spills;
+  3. every kernel against its plain version on the card, with its times:
+     K1 (depthwise conv) forward, dx, dw; K2 (flash attention) forward,
+     forward with statistics, dk/dv, dq; K3 (fused LN -> FFN -> residual);
+     K4 (splash attention) forward, forward with log-sum-exp, dk/dv, dq;
+  4. the infer path: ``some_tpu_torch.infer`` at production geometry
      (configs/midi_conformer.yaml: 8 dual-stream layers, dim 512, 8 x 64
      heads, k=31), random weights from a seed, on synthetic songs, in bf16
      and in 32-true, through the kernels and through the plain versions;
-     counts kernel launches and compares the notes.
-Prints one JSON line of kernel measurements, one of main-path results and,
+     counts kernel launches and compares the notes. Twice: the default
+     kernels (K1, K2), then the opt-in configuration (``fuse_ffn: true``,
+     ``attention_impl: splash``: K1, K3, K4);
+  5. the train path: ``Trainer.fit`` at production width with launch
+     counts per step and per validation forward, for the default and the
+     opt-in configuration, each followed by inference from its checkpoint;
+     a kernel-vs-plain train step for each; an f32 loss that falls.
+Prints one JSON line of kernel measurements, one of path results and,
 last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 import json
@@ -201,10 +210,14 @@ def check_attention(torch):
 
 
 MATMUL_KERNEL_NAMES = ("gemm", "cutlass", "sm90_", "cublas", "nvjet")
-# (substring of the CUDA kernel's name, group), first match wins
+# (substring of the CUDA kernel's name, group), first match wins; the splash
+# forward is one kernel with and without its log-sum-exp
 KERNEL_GROUPS = (("flash_fwd_stats", "flash_attention_fwd_res"),
                  ("flash_fwd", "flash_attention"), ("flash_bwd_dkv", "flash_attention_bwd_dkv"),
                  ("flash_bwd_dq", "flash_attention_bwd_dq"),
+                 ("splash_fwd", "splash_attention"), ("splash_bwd_dkv", "splash_attention_bwd_dkv"),
+                 ("splash_bwd_dq", "splash_attention_bwd_dq"),
+                 ("fused_ffn", "fused_ln_ffn_residual"),
                  ("depthwise_dw", "depthwise_conv1d_dw"), ("depthwise_fwd", "depthwise_conv1d"))
 
 
@@ -253,45 +266,30 @@ def make_song(seed: int, phrases: int, notes_per_phrase: int = 12) -> np.ndarray
     return np.concatenate(segs).astype(np.float32)
 
 
-def main_path(torch, workdir: pathlib.Path):
+OPT_IN = {"fuse_ffn": True, "attention_impl": "splash"}
+
+
+def infer_setup(workdir: pathlib.Path):
+    """The production config, one checkpoint of random weights from a seed
+    (numpy, in the JAX variable layout, carried across), and four synthetic
+    songs as WAV files."""
     from some_tpu_torch.audio.wavio import save_wav
     from some_tpu_torch.compat.from_jax import jax_params_to_state_dict, random_jax_variables
-    from some_tpu_torch.config import read_full_config, save_yaml
-    from some_tpu_torch.infer import load_engine, transcribe_file
+    from some_tpu_torch.config import read_full_config
     from some_tpu_torch.inference.base_infer import pick_bucket
-    from some_tpu_torch.nn.conformer import DepthwiseConv1d
     from some_tpu_torch.nn.model import build_midi_extractor
-    from some_tpu_torch.ops.attention import flash_attention
-    from some_tpu_torch.ops.depthwise import depthwise_conv1d
     from some_tpu_torch.utils.checkpoint import save_checkpoint
-    from some_tpu_torch.utils.midi_file import MidiFile, midi_notes_to_arrays
-    from some_tpu_torch.utils.note_f1 import note_f1
 
-    kernels = {"depthwise_conv1d": depthwise_conv1d, "flash_attention": flash_attention}
     config = read_full_config(REPO / "configs" / "midi_conformer.yaml")
     config["transfer_dtype"] = "int16"
     args = config["midi_extractor_args"]
-    blocks = 2 * args["lay"] + 2
-    log(f"main path: configs/midi_conformer.yaml, lay {args['lay']} dim {args['dim']} "
+    log(f"infer path: configs/midi_conformer.yaml, lay {args['lay']} dim {args['dim']} "
         f"heads {args['attention_heads']}x{args['attention_heads_dim']} k {args['kernel_size']}, "
-        f"{blocks} conformer blocks")
-
-    # weights: numpy from a seed, in the JAX variable layout, carried across
+        f"{2 * args['lay'] + 2} conformer blocks")
     variables = random_jax_variables(build_midi_extractor(config), seed=314159)
     state = jax_params_to_state_dict(variables["params"], variables["batch_stats"])
     ckpt = save_checkpoint(workdir / "model.pt", state, {"seed": 314159})
     del state, variables
-    dirs = {}
-    for precision in ("bf16", "32-true"):
-        for impl in ("kernel", "plain"):
-            d = workdir / f"{precision}-{impl}"
-            d.mkdir()
-            cfg = dict(config, pl_trainer_precision=precision)
-            if impl == "plain":
-                cfg["attention_impl"] = "xla"
-            save_yaml(cfg, d / "config.yaml")
-            os.symlink(ckpt, d / "model.pt")
-            dirs[precision, impl] = d / "model.pt"
 
     # three songs of about 30 s, and one whose single phrase is longer than
     # the 4096-frame bucket
@@ -307,58 +305,81 @@ def main_path(torch, workdir: pathlib.Path):
     audio_s = sum(len(s) for s in songs) / SR
     log(f"songs: {[round(len(s) / SR, 2) for s in songs]} s, {audio_s:.2f} s in all; the long "
         f"one has {long_frames} frames (bucket {pick_bucket(long_frames)})")
+    return {"config": config, "ckpt": ckpt, "wavs": wavs, "audio_s": audio_s,
+            "blocks": 2 * args["lay"] + 2}
 
-    def run_pass(engine, tag):
+
+def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False):
+    """The infer CLI's path (``load_engine`` + ``transcribe_file``) in bf16 and
+    32-true, through the kernels and through the plain versions (the same
+    config with the test-only ``impl`` switches at 'plain'): launches per
+    forward of every kernel, note F1 kernel vs plain (1.0 in f32, >= 0.95 in
+    bf16), RTF first and warm, peak memory and the device's busy share.
+    ``opt_in`` adds ``fuse_ffn: true`` and ``attention_impl: splash``."""
+    from some_tpu_torch.config import save_yaml
+    from some_tpu_torch.infer import load_engine, transcribe_file
+    from some_tpu_torch.nn.conformer import set_kernel_impl
+    from some_tpu_torch.utils.midi_file import MidiFile, midi_notes_to_arrays
+    from some_tpu_torch.utils.note_f1 import note_f1
+
+    tag = "opt-in" if opt_in else "default"
+    blocks, wavs, audio_s = setup["blocks"], setup["wavs"], setup["audio_s"]
+    per_forward = ({"depthwise_conv1d": blocks, "fused_ln_ffn_residual": 2 * blocks,
+                    "splash_attention": blocks} if opt_in else
+                   {"depthwise_conv1d": blocks, "flash_attention": blocks})
+    dirs = {}
+    for precision in ("bf16", "32-true"):
+        d = workdir / f"{tag}-{precision}"
+        d.mkdir()
+        save_yaml(dict(setup["config"], pl_trainer_precision=precision,
+                       **(OPT_IN if opt_in else {})), d / "config.yaml")
+        os.symlink(setup["ckpt"], d / "model.pt")
+        dirs[precision] = d / "model.pt"
+
+    def run_pass(engine, name):
         t0 = time.perf_counter()
-        paths = [transcribe_file(engine, wav, workdir / f"{tag}-{i}.mid")
+        paths = [transcribe_file(engine, wav, workdir / f"{tag}-{name}-{i}.mid")
                  for i, wav in enumerate(wavs)]
         torch.cuda.synchronize()
         return paths, time.perf_counter() - t0
 
-    def counts():
-        return {name: fn.launches for name, fn in kernels.items()}
-
-    def reset():
-        for fn in kernels.values():
-            fn.launches = 0
-
     result = {}
     main_launches = None
     for precision in ("bf16", "32-true"):
-        engine = load_engine(dirs[precision, "kernel"], device="cuda", quiet=True)
+        engine = load_engine(dirs[precision], device="cuda", quiet=True)
         engine.forwards = 0
-        reset()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
         midis, first_s = run_pass(engine, f"{precision}-kernel")
-        launched = counts()
+        launched = read_counts()
         forwards = engine.forwards
-        log(f"{precision} kernel path: {forwards} forwards, launches {launched}")
-        for name, n in launched.items():
-            if n != blocks * forwards or forwards == 0:
-                raise AssertionError(f"{name}: {n} launches for {forwards} forwards, want "
-                                     f"{blocks} per forward")
+        log(f"{tag} {precision} kernel path: {forwards} forwards, launches "
+            f"{ {n: c for n, c in launched.items() if c} }")
+        want = {name: per_forward.get(name, 0) * forwards for name in launched}
+        if launched != want or forwards == 0:
+            raise AssertionError(f"{tag} {precision}: launches {launched} for {forwards} "
+                                 f"forwards, want {per_forward} per forward and no other")
         if main_launches is None:
             main_launches = launched
         notes = [len(MidiFile.load(m).notes()) for m in midis]
         if min(notes) == 0:
-            raise AssertionError(f"{precision}: a MIDI file with no notes: {notes}")
+            raise AssertionError(f"{tag} {precision}: a MIDI file with no notes: {notes}")
         warm = [run_pass(engine, f"{precision}-warm")[1] for _ in range(3)]
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         profiled = profile_pass(torch, lambda: run_pass(engine, f"{precision}-profiled"))
         profiled["busy_share_of_warm_wall"] = (profiled["device_ms"] / 1e3
                                                / statistics.median(warm))
-        log(f"{precision} profile: " + json.dumps(profiled))
+        log(f"{tag} {precision} profile: " + json.dumps(profiled))
         del engine
         torch.cuda.empty_cache()
 
-        plain = load_engine(dirs[precision, "plain"], device="cuda", quiet=True)
-        for module in plain.model.modules():
-            if isinstance(module, DepthwiseConv1d):
-                module.impl = "plain"
-        reset()
+        plain = load_engine(dirs[precision], device="cuda", quiet=True)
+        set_kernel_impl(plain.model, "plain")
+        reset_counts()
         plain_midis, plain_first_s = run_pass(plain, f"{precision}-plain")
         plain_warm = [run_pass(plain, f"{precision}-plain-warm")[1] for _ in range(3)]
-        if any(counts().values()):
-            raise AssertionError(f"the plain path launched kernels: {counts()}")
+        if any(read_counts().values()):
+            raise AssertionError(f"the plain path launched kernels: {read_counts()}")
         del plain
         torch.cuda.empty_cache()
 
@@ -368,14 +389,15 @@ def main_path(torch, workdir: pathlib.Path):
                                midi_notes_to_arrays(MidiFile.load(b)),
                                onset_tolerance=0.05, pitch_tolerance=0.5).f1)
         need = 1.0 if precision == "32-true" else 0.95
-        log(f"{precision}: notes per song {notes}; kernel-vs-plain note F1 {f1s} "
+        log(f"{tag} {precision}: notes per song {notes}; kernel-vs-plain note F1 {f1s} "
             f"(need >= {need}); RTF first {audio_s / first_s:.2f}x, warm median "
             f"{audio_s / statistics.median(warm):.2f}x; plain path first "
             f"{audio_s / plain_first_s:.2f}x, warm median "
             f"{audio_s / statistics.median(plain_warm):.2f}x; device busy "
-            f"{profiled['busy_share_of_warm_wall']:.3f} of the warm median wall")
+            f"{profiled['busy_share_of_warm_wall']:.3f} of the warm median wall; peak "
+            f"{peak_gb:.2f} GiB")
         if min(f1s) < need:
-            raise AssertionError(f"{precision}: kernel-vs-plain note F1 {f1s} below {need}")
+            raise AssertionError(f"{tag} {precision}: kernel-vs-plain note F1 {f1s} below {need}")
         result[precision] = {
             "forwards": forwards, "launches": launched, "notes": notes, "f1_vs_plain": f1s,
             "audio_s": audio_s, "first_s": first_s, "warm_s": warm,
@@ -383,21 +405,27 @@ def main_path(torch, workdir: pathlib.Path):
             "plain_first_s": plain_first_s, "plain_warm_s": plain_warm,
             "plain_rtf_warm_median": audio_s / statistics.median(plain_warm),
             "peak_gib": peak_gb, "profile": profiled}
-    return result, main_launches, blocks
+    return result, main_launches
 
 
-# ---- the training slice ----
+# ---- launch counts; the training slice ----
 
 def kernel_counters():
     """name -> the wrapper whose ``launches`` counts that kernel's launches."""
     from some_tpu_torch.ops import attention as A
     from some_tpu_torch.ops import depthwise as W
+    from some_tpu_torch.ops import fused_ffn as K3
 
     return {"depthwise_conv1d": W.depthwise_conv1d, "depthwise_conv1d_dx": W.depthwise_conv1d_dx,
             "depthwise_conv1d_dw": W.depthwise_conv1d_dw, "flash_attention": A.flash_attention,
             "flash_attention_fwd_res": A.flash_attention_fwd_res,
             "flash_attention_bwd_dkv": A.flash_attention_bwd_dkv,
-            "flash_attention_bwd_dq": A.flash_attention_bwd_dq}
+            "flash_attention_bwd_dq": A.flash_attention_bwd_dq,
+            "fused_ln_ffn_residual": K3.fused_ln_ffn_residual,
+            "splash_attention": A.splash_attention,
+            "splash_attention_fwd_res": A.splash_attention_fwd_res,
+            "splash_attention_bwd_dkv": A.splash_attention_bwd_dkv,
+            "splash_attention_bwd_dq": A.splash_attention_bwd_dq}
 
 
 def read_counts():
@@ -563,6 +591,252 @@ def check_attention_backward(torch):
     return rows
 
 
+# ---- the opt-in kernels: K3 (fused FFN) and K4 (splash attention) ----
+
+def fused_ffn_tolerance(torch, want):
+    """Allowed |kernel - plain| for each element of ``want``. f32: 2e-5 +
+    1e-5 |want| (sums of 512 and 2048 products in another order). bf16: both
+    round the output once (2 ulp of |want|), and a hidden value whose f32 sum
+    lands on the other side of a bf16 rounding moves the output by about an
+    ulp of that value times its W2 weights: 0.01 x RMS(want)."""
+    if want.dtype == torch.float32:
+        return 2e-5 + 1e-5 * want.abs()
+    w = want.float()
+    return 2 * bf16_ulp(torch, w) + 0.01 * float(w.pow(2).mean().sqrt())
+
+
+def check_fused_ffn(torch):
+    """K3 against its plain version at the inference shapes, with the time of
+    the unfused eager chain it replaces (LayerNorm, Linear, SiLU, Linear,
+    residual; cuBLAS, no TF32) as ``eager_chain_ms``. No single PyTorch call
+    computes K3's function, so its ``library_ms`` is None."""
+    import torch.nn.functional as F
+    from some_tpu_torch.ops.fused_ffn import fused_ln_ffn_residual, fused_ln_ffn_residual_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    D, H = 512, 2048
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    weights = [1.0 + 0.1 * randn(D), 0.1 * randn(D), randn(D, H) * D ** -0.5, 0.1 * randn(H),
+               randn(H, D) * H ** -0.5, 0.1 * randn(D)]
+    g, b, w1, b1, w2, b2 = weights
+    rows = []
+    for shape in ((8, 1024, D), (1, 6144, D), (3, 77, D)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = randn(*shape).to(dtype)
+            got = fused_ln_ffn_residual(x, *weights)
+            want = fused_ln_ffn_residual_plain(x, *weights)
+            torch.cuda.synchronize()
+            d = (got.float() - want.float()).abs()
+            ratio = float((d / fused_ffn_tolerance(torch, want)).max())
+            finite = bool(torch.isfinite(got.float()).all())
+            tol_text = ("|d| <= 2e-5 + 1e-5 |want|" if dtype == torch.float32 else
+                        "|d| <= 2 bf16 ulp + 0.01 RMS")
+            log(f"K3 fused FFN {list(shape)} {str(dtype)[6:]}: max|d| {float(d.max()):.3e}, "
+                f"max |d|/tol {ratio:.3f} ({tol_text}); finite {finite}: "
+                f"{'ok' if ratio <= 1 and finite else 'FAIL'}")
+            if ratio > 1 or not finite:
+                raise AssertionError(f"K3 disagrees with its plain version at {shape} {dtype}: "
+                                     f"max |d|/tol {ratio}, finite {finite}")
+            gd, bd, b1d, b2d = (t.to(dtype) for t in (g, b, b1, b2))
+            w1l, w2l = w1.t().to(dtype).contiguous(), w2.t().to(dtype).contiguous()
+
+            def chain():
+                h = F.linear(F.layer_norm(x, (D,), gd, bd, 1e-5), w1l, b1d)
+                return F.linear(F.silu(h), w2l, b2d) * 0.5 + x
+
+            n = shape[0] * shape[1]
+            isz = x.element_size()
+            row = timing_row(torch, shape, dtype, float(d.max()), ratio,
+                             lambda: fused_ln_ffn_residual(x, *weights),
+                             lambda: fused_ln_ffn_residual_plain(x, *weights), chain,
+                             2 * n * D * isz + 2 * D * H * isz + (3 * D + H) * 4,
+                             4 * n * D * H, PEAK_FLOPS[str(dtype)[6:]])
+            row["eager_chain_ms"], row["library_ms"] = row["library_ms"], None
+            log(f"  K3 {list(shape)} {str(dtype)[6:]}: kernel {row['kernel_ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.4f} ms, unfused eager chain {row['eager_chain_ms']:.4f} ms, "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+            rows.append(row)
+            del x, got, want, d
+    torch.cuda.empty_cache()
+    return rows
+
+
+def splash_inputs(torch, gen, shape, dtype):
+    """q, k, v, dO as [B, H, T, D] views of [B, T, H, D] storage (as the
+    model passes them), and a mask with a padded tail in row 0 and, for
+    B > 1, an all-padding last row."""
+    B, H, T, D = shape
+    q, k, v, do = (torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
+                   .transpose(1, 2) for _ in range(4))
+    mask = torch.ones((B, T), dtype=torch.bool, device="cuda")
+    mask[0, int(T * 0.7):] = False
+    if B > 1:
+        mask[B - 1] = False
+    return q, k, v, do, mask
+
+
+def segment_pairs(mask):
+    """The (query, key) pairs of one head that share a segment: the work the
+    segment ids leave."""
+    real = mask.sum(dim=1).double()
+    return int((real ** 2 + (mask.shape[1] - real) ** 2).sum())
+
+
+def segment_mask(mask):
+    """[B, 1, T, T] bool: query and key in one segment, for SDPA."""
+    return (mask[:, :, None] == mask[:, None, :])[:, None]
+
+
+def splash_forward_tolerance(torch, want):
+    """f32: 1e-5. bf16: both round the output to bf16 once (an ulp apart at
+    worst) and sum P.V in another order: 2 bf16 ulp of |want| + 0.005 RMS."""
+    if want.dtype == torch.float32:
+        return torch.full_like(want, 1e-5, dtype=torch.float32)
+    w = want.float()
+    return 2 * bf16_ulp(torch, w) + 0.005 * float(w.pow(2).mean().sqrt())
+
+
+def check_splash(torch):
+    """K4's forward, inference and with log-sum-exp, against the plain
+    version (splash's reference) on every row: padded queries attend only
+    padded keys, the all-padding row attends all its keys. The two kernels
+    are one template and must agree bit for bit; lse within 1e-5 relative of
+    the plain f32 log-sum-exp."""
+    import torch.nn.functional as F
+    from some_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for shape in ((8, 8, 1024, 64), (1, 8, 8192, 64), (2, 2, 77, 32)):
+        for dtype in (torch.bfloat16, torch.float32):
+            B, H, T, D = shape
+            q, k, v, _, mask = splash_inputs(torch, gen, shape, dtype)
+            scale = D ** -0.5
+            qs = A.prescale(q, scale)
+            got = A.splash_attention(q, k, v, mask, scale)
+            got_res, lse = A.splash_attention_fwd_res(qs, k, v, mask)
+            want = A.splash_attention_plain(q, k, v, mask, scale)
+            scores = torch.matmul(qs.float(), k.float().transpose(-1, -2)).masked_fill(
+                ~segment_mask(mask), A.SPLASH_MASK_VALUE)
+            want_lse = torch.logsumexp(scores, dim=-1)
+            del scores
+            torch.cuda.synchronize()
+            d = (got.float() - want.float()).abs()
+            ratio = float((d / splash_forward_tolerance(torch, want)).max())
+            lse_ratio = float(((lse - want_lse).abs() / (1e-5 * want_lse.abs().clamp(min=1.0)))
+                              .max())
+            same = torch.equal(got, got_res)
+            finite = bool(torch.isfinite(got.float()).all())
+            ok = ratio <= 1 and lse_ratio <= 1 and same and finite
+            log(f"K4 splash {list(shape)} {str(dtype)[6:]}: max|d| {float(d.max()):.3e}, max "
+                f"|d|/tol {ratio:.3f} (f32 1e-5; bf16 2 ulp + 0.005 RMS), lse max |d|/tol "
+                f"{lse_ratio:.3f} (1e-5 relative); with-lse output identical {same}; finite "
+                f"{finite}: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K4 forward disagrees with its plain version at {shape} "
+                                     f"{dtype}: {ratio}, lse {lse_ratio}, same {same}")
+            seg = segment_mask(mask)
+            isz = q.element_size()
+            row = timing_row(torch, shape, dtype, float(d.max()), ratio,
+                             lambda: A.splash_attention(q, k, v, mask, scale),
+                             lambda: A.splash_attention_plain(q, k, v, mask, scale),
+                             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=seg,
+                                                                    scale=scale),
+                             4 * B * H * T * D * isz + B * T,
+                             4 * H * D * segment_pairs(mask), PEAK_FLOPS[str(dtype)[6:]])
+            row["lse_max_diff_over_tol"] = lse_ratio
+            log(f"  K4 fwd {list(shape)} {str(dtype)[6:]}: kernel {row['kernel_ms']:.4f} ms, "
+                f"plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            rows.append(row)
+            del q, k, v, qs, got, got_res, lse, want, want_lse, d, seg
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_splash_backward(torch):
+    """K4 for training through SplashAttentionFn against the plain
+    version's autograd, with a random dO: chip_smoke's grad_tolerance with
+    rel 5e-5 in f32 and 0.1 in bf16 (the kernels round P and dS to bf16 as
+    splash's do, the plain autograd keeps them f32). Then with dO zero on the
+    padded query rows: dq at padded queries and dk, dv at padded keys must
+    be exactly 0 (no gradient crosses segments)."""
+    import torch.nn.functional as F
+    from some_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = {"splash_attention_fwd_res": [], "splash_attention_bwd_dkv": [],
+            "splash_attention_bwd_dq": []}
+    for shape in ((8, 8, 1024, 64), (1, 8, 8192, 64), (2, 2, 77, 32)):
+        for dtype in (torch.bfloat16, torch.float32):
+            B, H, T, D = shape
+            q, k, v, do, mask = splash_inputs(torch, gen, shape, dtype)
+            scale = D ** -0.5
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = A.splash_attention(*leaves, mask, scale)
+            if out.grad_fn is None:
+                raise AssertionError("K4 on a CUDA tensor that needs grad returned no grad_fn")
+            grads = torch.autograd.grad(out, leaves, do)
+            want_out = A.splash_attention_plain(*leaves, mask, scale)
+            wants = torch.autograd.grad(want_out, leaves, do, retain_graph=True)
+            rel = 0.1 if dtype == torch.bfloat16 else 5e-5
+            label = f"{list(shape)} {str(dtype)[6:]}"
+            checks = {name: compare(torch, f"K4 {name} {label}", got, want, rel)
+                      for name, got, want in zip(("dq", "dk", "dv"), grads, wants)}
+            pad = ~mask
+            do0 = do * mask[:, None, :, None]
+            zeroed = torch.autograd.grad(A.splash_attention(*leaves, mask, scale), leaves, do0)
+            exact = all(bool((g.transpose(1, 2)[pad] == 0).all()) for g in zeroed)
+            if not exact:
+                raise AssertionError(f"K4 {label}: a gradient crosses segments")
+            log(f"K4 backward {label}: " + ", ".join(
+                f"{n} max|d| {d:.3e} |d|/tol {r:.3f}" for n, (d, r) in checks.items())
+                + f" (2 ulp + {rel} RMS); with dO 0 on padded queries, dq, dk, dv exactly 0 "
+                f"at the {int(pad.sum())} padded frames: ok")
+
+            qs = A.prescale(q, scale)
+            out_k, lse = A.splash_attention_fwd_res(qs, k, v, mask)
+            di = (out_k.float() * do.float()).sum(-1).contiguous()
+            seg = segment_mask(mask)
+            lib_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            lib_out = F.scaled_dot_product_attention(*lib_leaves, attn_mask=seg, scale=scale)
+            isz = q.element_size()
+            peak = PEAK_FLOPS[str(dtype)[6:]]
+            flops = H * D * segment_pairs(mask)
+            plain_bwd = lambda: torch.autograd.grad(want_out, leaves, do, retain_graph=True)
+            lib_bwd = lambda: torch.autograd.grad(lib_out, lib_leaves, do, retain_graph=True)
+
+            def lib_fwd():
+                with torch.enable_grad():
+                    return F.scaled_dot_product_attention(*lib_leaves, attn_mask=seg, scale=scale)
+
+            d_kv = max(checks["dk"], checks["dv"])
+            rows["splash_attention_fwd_res"].append(timing_row(
+                torch, shape, dtype, *compare(torch, f"K4 out {label}", out, want_out, rel),
+                lambda: A.splash_attention_fwd_res(qs, k, v, mask),
+                lambda: A.splash_attention_plain(q, k, v, mask, scale), lib_fwd,
+                4 * B * H * T * D * isz + B * T + 4 * B * H * T, 4 * flops, peak, reps=5))
+            rows["splash_attention_bwd_dkv"].append(timing_row(
+                torch, shape, dtype, *d_kv,
+                lambda: A.splash_attention_bwd_dkv(qs, k, v, do, lse, di, mask),
+                plain_bwd, lib_bwd, 6 * B * H * T * D * isz + 8 * B * H * T + B * T,
+                8 * flops, peak, reps=5))
+            rows["splash_attention_bwd_dq"].append(timing_row(
+                torch, shape, dtype, *checks["dq"],
+                lambda: A.splash_attention_bwd_dq(qs, k, v, do, lse, di, mask),
+                plain_bwd, lib_bwd, 5 * B * H * T * D * isz + 8 * B * H * T + B * T,
+                6 * flops, peak, reps=5))
+            for name in rows:
+                r = rows[name][-1]
+                log(f"  {name} {label}: kernel {r['kernel_ms']:.4f} ms, plain {r['plain_ms']:.4f}"
+                    f" ms, SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                    f"({r['bound_by']})")
+            del q, k, v, do, leaves, out, grads, want_out, wants, zeroed, qs, out_k, lse, di
+            del lib_leaves, lib_out, plain_bwd, lib_bwd, seg
+            torch.cuda.empty_cache()
+    return rows
+
+
 def make_item(rng, n_frames, n_notes, units_dim):
     """One training item with the fields of tests/test_training.py::make_item:
     random units, a pitch curve, notes of random pitch (a fifth rests) whose
@@ -599,6 +873,13 @@ def in_memory_task(config, train_items, valid_items, device="cuda"):
             sizes = lambda items: np.array([i["length"] for i in items])
             return (train_items, sizes(train_items)), (valid_items, sizes(valid_items))
 
+        def valid_step(self, state, batch):
+            before = read_counts()
+            out = super().valid_step(state, batch)
+            after = read_counts()
+            self.valid_launches.append({n: after[n] - before[n] for n in after})
+            return out
+
         def train_step(self, state, batch):
             import torch
 
@@ -617,6 +898,7 @@ def in_memory_task(config, train_items, valid_items, device="cuda"):
 
     task = InMemoryTask(config, device=device)
     task.step_records = []
+    task.valid_launches = []
     return task
 
 
@@ -628,12 +910,16 @@ def production_config(**overrides):
     return config
 
 
-def train_path(torch, workdir: pathlib.Path, n_steps=12):
+def train_path(torch, workdir: pathlib.Path, n_steps: int, opt_in: bool = False):
     """Trainer.fit at production width (configs/midi_conformer.yaml: 8
     dual-stream layers, dim 512, 8 x 64 heads, k 31, bf16, remat on,
     dropout 0.1) on 64 synthetic items of 600-2000 frames, batches of up to
     8 rows bucketed to 128 frames; validation and a checkpoint at the last
-    step; then the infer path loads that checkpoint and transcribes a song."""
+    step; then the infer path loads that checkpoint and transcribes a song.
+    Launches are held per train step and per validation forward. ``opt_in``
+    adds ``fuse_ffn: true`` and ``attention_impl: splash``: the steps run
+    K4 and no K3 (training runs the unfused FFN, as in JAX), the validation
+    forwards run K3 and K4's inference kernel."""
     from some_tpu_torch.audio.wavio import save_wav
     from some_tpu_torch.config import save_yaml
     from some_tpu_torch.infer import load_engine, transcribe_file
@@ -641,19 +927,23 @@ def train_path(torch, workdir: pathlib.Path, n_steps=12):
     from some_tpu_torch.training.trainer import Trainer
     from some_tpu_torch.utils.midi_file import MidiFile
 
+    tag = "opt-in" if opt_in else "default"
     config = production_config(val_check_interval=n_steps, num_sanity_val_steps=0,
-                               log_interval=4, max_val_batch_size=1)
+                               log_interval=4, max_val_batch_size=1,
+                               **(OPT_IN if opt_in else {}))
     args = config["midi_extractor_args"]
     blocks = 2 * args["lay"] + 2
     remat_blocks = 2 * args["lay"]
-    log(f"train path: configs/midi_conformer.yaml, lay {args['lay']} dim {args['dim']} heads "
-        f"{args['attention_heads']}x{args['attention_heads_dim']} k {args['kernel_size']}, "
-        f"{config['pl_trainer_precision']}, remat {config.get('use_remat', True)}, dropout "
-        f"{args['conv_drop']}, max {config['max_batch_size']} rows x "
-        f"{config['max_batch_frames']} frames, bucket grid {config['frame_bucket_grid']}")
+    log(f"{tag} train path: configs/midi_conformer.yaml, lay {args['lay']} dim {args['dim']} "
+        f"heads {args['attention_heads']}x{args['attention_heads_dim']} k "
+        f"{args['kernel_size']}, {config['pl_trainer_precision']}, remat "
+        f"{config.get('use_remat', True)}, dropout {args['conv_drop']}, max "
+        f"{config['max_batch_size']} rows x {config['max_batch_frames']} frames, bucket grid "
+        f"{config['frame_bucket_grid']}, fuse_ffn {config.get('fuse_ffn', False)}, "
+        f"attention_impl {config.get('attention_impl', 'auto')}")
     train_items = synthetic_items(7, 64, config["units_dim"])
     valid_items = synthetic_items(8, 3, config["units_dim"])
-    work = workdir / "train"
+    work = workdir / f"train-{tag}"
     work.mkdir()
     save_yaml(config, work / "config.yaml")
     task = in_memory_task(config, train_items, valid_items)
@@ -669,25 +959,35 @@ def train_path(torch, workdir: pathlib.Path, n_steps=12):
     records = task.step_records
     if state.step != n_steps or len(records) != n_steps:
         raise AssertionError(f"fit ran {state.step} steps ({len(records)} timed), want {n_steps}")
-    want = {"depthwise_conv1d": blocks + remat_blocks, "depthwise_conv1d_dx": blocks,
-            "depthwise_conv1d_dw": blocks, "flash_attention": 0,
-            "flash_attention_fwd_res": blocks + remat_blocks, "flash_attention_bwd_dkv": blocks,
-            "flash_attention_bwd_dq": blocks}
+    attn = "splash_attention" if opt_in else "flash_attention"
+    per_step = {"depthwise_conv1d": blocks + remat_blocks, "depthwise_conv1d_dx": blocks,
+                "depthwise_conv1d_dw": blocks, f"{attn}_fwd_res": blocks + remat_blocks,
+                f"{attn}_bwd_dkv": blocks, f"{attn}_bwd_dq": blocks}
+    per_valid = {"depthwise_conv1d": blocks, attn: blocks}
+    if opt_in:
+        per_valid["fused_ln_ffn_residual"] = 2 * blocks
+    want = {name: per_step.get(name, 0) for name in launched}
+    want_valid = {name: per_valid.get(name, 0) for name in launched}
     for i, rec in enumerate(records):
         if rec["launches"] != want:
-            raise AssertionError(f"train step {i} launched {rec['launches']}, want {want}")
-    if any(n == 0 for n in launched.values()):
-        raise AssertionError(f"a kernel of the train path never launched: {launched}")
+            raise AssertionError(f"{tag} train step {i} launched {rec['launches']}, want {want}")
+    if not task.valid_launches or any(v != want_valid for v in task.valid_launches):
+        raise AssertionError(f"{tag} validation forwards launched {task.valid_launches}, want "
+                             f"{want_valid} each")
+    if any(launched[name] == 0 for name in set(per_step) | set(per_valid)):
+        raise AssertionError(f"a kernel of the {tag} train path never launched: {launched}")
     losses = [r["total_loss"] for r in records]
     if not all(np.isfinite(losses)) or not all(np.isfinite([r["grad_norm"] for r in records])):
         raise AssertionError(f"non-finite training logs: {records}")
     warm = records[2:]
     step_ms = statistics.median(r["s"] * 1e3 for r in warm)
     frames_per_s = sum(r["frames"] for r in warm) / sum(r["s"] for r in warm)
-    log(f"train path: {n_steps} steps in {fit_s:.1f} s (fit, validation and checkpoint); "
-        f"launches per step {want} on every step; warm step median {step_ms:.1f} ms "
-        f"(synchronized per step), {frames_per_s:.0f} frames/s; peak {peak_gib:.2f} GiB; "
-        f"losses {[round(x, 4) for x in losses]}; validation {trainer.last_validation}")
+    log(f"{tag} train path: {n_steps} steps in {fit_s:.1f} s (fit, validation and checkpoint); "
+        f"launches per step { {n: c for n, c in want.items() if c} } on every step, per "
+        f"validation forward { {n: c for n, c in want_valid.items() if c} } on each of "
+        f"{len(task.valid_launches)}; warm step median {step_ms:.1f} ms (synchronized per "
+        f"step), {frames_per_s:.0f} frames/s; peak {peak_gib:.2f} GiB; losses "
+        f"{[round(x, 4) for x in losses]}; validation {trainer.last_validation}")
 
     # device busy share of one more step on the largest bucket, against the
     # unprofiled wall of the same step
@@ -704,7 +1004,7 @@ def train_path(torch, workdir: pathlib.Path, n_steps=12):
     profiled["busy_share_of_unprofiled_wall"] = (profiled["device_ms"] / 1e3
                                                  / statistics.median(walls))
     profiled["batch"] = [int(batch["size"]), int(batch["units"].shape[1])]
-    log("train step profile: " + json.dumps(profiled))
+    log(f"{tag} train step profile: " + json.dumps(profiled))
 
     ckpt = latest_checkpoint(work)
     if ckpt is None or ckpt.name != f"model_ckpt_steps_{n_steps}.ckpt":
@@ -716,16 +1016,16 @@ def train_path(torch, workdir: pathlib.Path, n_steps=12):
     torch.cuda.empty_cache()
     engine = load_engine(ckpt, device="cuda", quiet=True)
     save_wav(workdir / "trained.wav", make_song(4242, phrases=2), SR)
-    midi = transcribe_file(engine, workdir / "trained.wav", workdir / "trained.mid")
+    midi = transcribe_file(engine, workdir / "trained.wav", workdir / f"trained-{tag}.mid")
     notes = len(MidiFile.load(midi).notes())
-    log(f"infer from the trained checkpoint {ckpt.name}: {engine.forwards} forwards, "
+    log(f"infer from the {tag} trained checkpoint {ckpt.name}: {engine.forwards} forwards, "
         f"{notes} notes in {midi.name}")
     del engine
     torch.cuda.empty_cache()
     return {"steps": n_steps, "fit_s": fit_s, "warm_step_ms_median": step_ms,
             "frames_per_s": frames_per_s, "peak_gib": peak_gib, "step_records": records,
-            "launches_per_step": want, "validation": validation, "profile": profiled,
-            "infer_notes": notes}, launched
+            "launches_per_step": want, "launches_per_validation_forward": want_valid,
+            "validation": validation, "profile": profiled, "infer_notes": notes}, launched
 
 
 def step_grads(torch, task, state, batch):
@@ -750,10 +1050,11 @@ def step_grads(torch, task, state, batch):
     return logs, grads
 
 
-def kernel_vs_plain_step(torch):
+def kernel_vs_plain_step(torch, opt_in: bool = False):
     """One train step from one state and one batch with dropout 0, through
-    the kernels and through the plain versions (attention_impl 'xla', the
-    depthwise conv's plain impl), production width. Losses and grad_norm:
+    the kernels and through the plain versions (the same config with the
+    test-only ``impl`` switches at 'plain'), production width; ``opt_in``
+    adds ``fuse_ffn: true`` and ``attention_impl: splash``. Losses and grad_norm:
     relative difference <= 1e-4 in f32, 2e-2 in bf16. Every parameter's
     gradient: ||g_kernel - g_plain|| <= rel x max(||g_plain||, 1e-3 x the
     gradient's RMS over the model x sqrt(its size)), rel 1e-3 in f32 and 0.1
@@ -762,35 +1063,34 @@ def kernel_vs_plain_step(torch):
     them, so their gradient is 0 in exact arithmetic and float noise in both
     paths, whose norm must stay below 0.01 (f32) or 0.1 (bf16) x the
     model's gradient RMS x sqrt(size)."""
-    from some_tpu_torch.nn.conformer import DepthwiseConv1d
+    from some_tpu_torch.nn.conformer import set_kernel_impl
 
+    tag = "opt-in" if opt_in else "default"
     items = synthetic_items(9, 4, 80, lo=900, hi=1100)
     result = {}
     for precision, rel_log, rel_grad in (("32-true", 1e-4, 1e-3), ("bf16", 2e-2, 0.1)):
-        config = production_config(pl_trainer_precision=precision)
+        config = production_config(pl_trainer_precision=precision,
+                                   **(OPT_IN if opt_in else {}))
         config["midi_extractor_args"] = dict(config["midi_extractor_args"], conv_drop=0.0,
                                              ffn_latent_drop=0.0, ffn_out_drop=0.0,
                                              attention_drop=0.0)
         runs = {}
         for impl in ("kernel", "plain"):
-            cfg = dict(config, attention_impl="auto" if impl == "kernel" else "xla")
-            task = in_memory_task(cfg, items, items)
+            task = in_memory_task(config, items, items)
             state = task.init_state(seed=11)
-            if impl == "plain":
-                for module in state.model.modules():
-                    if isinstance(module, DepthwiseConv1d):
-                        module.impl = "plain"
+            set_kernel_impl(state.model, "auto" if impl == "kernel" else impl)
             batch = task.collate(items)
             reset_counts()
             runs[impl] = step_grads(torch, task, state, batch)
             counts = read_counts()
             if (impl == "plain") == any(counts.values()):
-                raise AssertionError(f"{precision} {impl} path launches {counts}")
+                raise AssertionError(f"{tag} {precision} {impl} path launches {counts}")
             del task, state
         (logs_k, grads_k), (logs_p, grads_p) = runs["kernel"], runs["plain"]
         for key in logs_k:
             if abs(logs_k[key] - logs_p[key]) > rel_log * abs(logs_p[key]):
-                raise AssertionError(f"{precision} {key}: kernel {logs_k[key]} plain {logs_p[key]}")
+                raise AssertionError(f"{tag} {precision} {key}: kernel {logs_k[key]} plain "
+                                     f"{logs_p[key]}")
         n_all = sum(g.numel() for g in grads_p.values())
         rms_all = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads_p.values()) / n_all))
         errs = []
@@ -814,7 +1114,7 @@ def kernel_vs_plain_step(torch):
         if worst[0] > rel_grad:
             raise AssertionError(f"{precision}: gradient of {worst[1]} off by {worst[0]:.3e} "
                                  f"(relative), limit {rel_grad}; worst {errs[:5]}")
-        log(f"kernel vs plain train step, {precision}, 4 rows x {batch['units'].shape[1]}"
+        log(f"{tag} kernel vs plain train step, {precision}, 4 rows x {batch['units'].shape[1]}"
             f" frames: losses kernel {logs_k} plain {logs_p}; worst parameter gradients "
             f"{[(n, f'{e:.3e}') for e, n in errs[:3]]} relative (limit {rel_grad}); the "
             f"depthwise biases' gradients are float noise in both: ok")
@@ -888,15 +1188,24 @@ def main() -> int:
     rows = {"depthwise_conv1d": check_depthwise(torch), "flash_attention": check_attention(torch)}
     rows.update(check_depthwise_backward(torch))
     rows.update(check_attention_backward(torch))
+    rows["fused_ln_ffn_residual"] = check_fused_ffn(torch)
+    rows["splash_attention"] = check_splash(torch)
+    rows.update(check_splash_backward(torch))
 
+    launches, results = {}, {}
     with tempfile.TemporaryDirectory(prefix="some_tpu_torch_smoke_") as tmp:
-        reset_counts()
-        main_result, infer_launches, blocks = main_path(torch, pathlib.Path(tmp))
-        train_result, train_launches = train_path(torch, pathlib.Path(tmp))
-    agreement = kernel_vs_plain_step(torch)
-    overfit = overfit_f32(torch)
+        setup = infer_setup(pathlib.Path(tmp))
+        for opt_in in (False, True):
+            tag = "opt_in" if opt_in else "default"
+            results[f"infer_{tag}"], launches[f"infer_{tag}"] = main_path(
+                torch, pathlib.Path(tmp), setup, opt_in)
+            results[f"train_{tag}"], launches[f"train_{tag}"] = train_path(
+                torch, pathlib.Path(tmp), 8, opt_in)
+            results[f"kernel_vs_plain_train_step_{tag}"] = kernel_vs_plain_step(torch, opt_in)
+    results["f32_overfit"] = overfit_f32(torch)
 
     flash_py = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    splash_py = "jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py"
     kernels = (
         ("depthwise_conv1d", "depthwise_conv.cu", "some_tpu/ops/depthwise.py:24"),
         ("flash_attention", "flash_attention.cu", "some_tpu/ops/attention.py:61"),
@@ -904,15 +1213,22 @@ def main() -> int:
         ("depthwise_conv1d_dw", "depthwise_conv.cu", "some_tpu/ops/depthwise.py:127"),
         ("flash_attention_fwd_res", "flash_attention.cu", f"{flash_py}:234"),
         ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", f"{flash_py}:941"),
-        ("flash_attention_bwd_dq", "flash_attention_bwd.cu", f"{flash_py}:1287"))
+        ("flash_attention_bwd_dq", "flash_attention_bwd.cu", f"{flash_py}:1287"),
+        ("fused_ln_ffn_residual", "fused_ffn.cu", "some_tpu/ops/fused_ffn.py:27"),
+        ("splash_attention", "splash_attention.cu", f"{splash_py}:696"),
+        ("splash_attention_fwd_res", "splash_attention.cu", f"{splash_py}:696"),
+        ("splash_attention_bwd_dkv", "splash_attention_bwd.cu", f"{splash_py}:1669"),
+        ("splash_attention_bwd_dq", "splash_attention_bwd.cu", f"{splash_py}:1307"))
 
     def entry(name, source, replaces):
         head = rows[name][0]  # [8, ...] bf16: the production dtype at a main-path batch
-        by_path = {"infer": infer_launches.get(name, 0), "train": train_launches[name]}
+        by_path = {path: counts[name] for path, counts in launches.items()}
         return {"name": name, "route": "cuda", "source": f"some_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
-                "launches_per_train_step": train_result["launches_per_step"][name],
+                "launches_per_train_step": {
+                    tag: results[f"train_{tag}"]["launches_per_step"][name]
+                    for tag in ("default", "opt_in")},
                 "max_abs_err": max(r["max_abs_diff"] for r in rows[name]),
                 "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -920,9 +1236,7 @@ def main() -> int:
                 "dtype": head["dtype"], "card": card, "shapes": rows[name]}
 
     print(json.dumps({"kernels": [entry(*k) for k in kernels]}), flush=True)
-    print(json.dumps({"main_path": main_result, "train_path": train_result,
-                      "kernel_vs_plain_train_step": agreement, "f32_overfit": overfit,
-                      "card": card}), flush=True)
+    print(json.dumps(dict(results, card=card)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -117,16 +117,21 @@ class BaseInference:
         raise NotImplementedError
 
     def _log_bucket_path(self, n_frames: int) -> None:
-        """Say once per bucket which attention path it runs (stderr: stdout
-        belongs to the surfaces' own output)."""
+        """Say once per bucket which attention path it runs, and whether the
+        macaron FFNs run fused (stderr: stdout belongs to the surfaces' own
+        output)."""
         if not hasattr(self, "_logged_buckets"):
             self._logged_buckets = set()
         if n_frames in self._logged_buckets:
             return
         self._logged_buckets.add(n_frames)
         impl = self.config.get("attention_impl", "auto")
-        path = "plain" if impl == "xla" or self.device.type == "cpu" else "flash kernel"
-        print(f"| bucket T={n_frames}: attention={path}", file=sys.stderr)
+        if impl == "xla" or self.device.type == "cpu":
+            path = "plain"
+        else:
+            path = "splash kernel" if impl == "splash" else "flash kernel"
+        ffn = ", fused FFN" if self.config.get("fuse_ffn", False) else ""
+        print(f"| bucket T={n_frames}: attention={path}{ffn}", file=sys.stderr)
 
     def infer(self, waveforms: List[np.ndarray]) -> List[Dict[str, np.ndarray]]:
         """Chunk list -> note dicts, batched per bucket: dispatch every group,

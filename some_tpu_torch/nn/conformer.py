@@ -25,10 +25,19 @@ package's precision contract:
   * attention scores and softmax are f32 (see ops/attention.py);
   * the boundary sigmoid is f32.
 
+With ``fuse_ffn`` (inference only, as in JAX) each macaron FFN of an
+eval-mode block is one fused LN -> FFN -> residual kernel
+(``ops/fused_ffn.py``), with that kernel's arithmetic (f32 biases and SiLU,
+the JAX kernel's LayerNorm variance); training runs the unfused modules.
+
 Masks: attention excludes padded keys, the conv module zeroes padded frames
 before the depthwise conv, and MidiConformer re-masks the midi stream after
 its input projection and after every layer. With them a padded bucket
 reproduces the unpadded sequence.
+
+Each kernel-backed module has a test-only ``impl`` switch ('auto' | 'plain',
+see :func:`set_kernel_impl`) that forces the kernels' plain versions on the
+card, for comparing the two; no config key reads it.
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from some_tpu_torch.ops.attention import attention_bhtd
 from some_tpu_torch.ops.depthwise import depthwise_conv1d
+from some_tpu_torch.ops.fused_ffn import fused_ln_ffn_residual
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -145,6 +155,7 @@ class SelfAttention(nn.Module):
         hidden = heads * head_dim
         self.heads, self.head_dim = heads, head_dim
         self.attn_impl = attn_impl
+        self.impl = "auto"
         self.compute_dtype = dtype
         self.q_proj = QDense(dim, hidden, bias=False, dtype=dtype)
         self.kv_proj = QDense(dim, hidden * 2, bias=False, dtype=dtype)
@@ -157,7 +168,7 @@ class SelfAttention(nn.Module):
         k, v = self.kv_proj(x).chunk(2, dim=-1)
         k = k.unflatten(-1, (H, D)).transpose(1, 2)
         v = v.unflatten(-1, (H, D)).transpose(1, 2)
-        out = attention_bhtd(q, k, v, mask, D ** -0.5, self.attn_impl)
+        out = attention_bhtd(q, k, v, mask, D ** -0.5, self.attn_impl, self.impl)
         out = out.transpose(1, 2).reshape(B, T, H * D).to(self.compute_dtype)
         return self.out_proj(out)
 
@@ -252,8 +263,10 @@ class ConformerBlock(nn.Module):
     def __init__(self, dim: int, kernel_size: int, heads: int, head_dim: int,
                  dtype: torch.dtype, attn_impl: str = "auto", conv_drop: float = 0.0,
                  ffn_latent_drop: float = 0.0, ffn_out_drop: float = 0.0,
-                 attention_drop: float = 0.0):
+                 attention_drop: float = 0.0, fuse_ffn: bool = False):
         super().__init__()
+        self.fuse_ffn = fuse_ffn
+        self.ffn_impl = "auto"
         self.norm1 = LayerNorm(dim, dtype)
         self.ffn1 = FeedForward(dim, dtype, ffn_latent_drop, ffn_out_drop)
         self.norm2 = LayerNorm(dim, dtype)
@@ -265,11 +278,21 @@ class ConformerBlock(nn.Module):
         self.ffn2 = FeedForward(dim, dtype, ffn_latent_drop, ffn_out_drop)
         self.norm5 = LayerNorm(dim, dtype)
 
+    def _macaron_ffn(self, x: torch.Tensor, norm: LayerNorm, ffn: FeedForward) -> torch.Tensor:
+        """x + 0.5 * FFN(LN(x)): the fused kernel with the block's own weights
+        when ``fuse_ffn`` and in eval mode (the JAX ``_macaron_ffn``), else the
+        unfused modules, dropout included."""
+        if self.fuse_ffn and not self.training:
+            return fused_ln_ffn_residual(x, norm.weight, norm.bias, ffn.fc1.weight.t(),
+                                         ffn.fc1.bias, ffn.fc2.weight.t(), ffn.fc2.bias,
+                                         eps=norm.eps, res_scale=0.5, impl=self.ffn_impl)
+        return ffn(norm(x)) * 0.5 + x
+
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.ffn1(self.norm1(x)) * 0.5 + x
+        x = self._macaron_ffn(x, self.norm1, self.ffn1)
         x = self.attn_drop(self.attn(self.norm2(x), mask)) + x
         x = self.conv(self.norm3(x), mask) + x
-        x = self.ffn2(self.norm4(x)) * 0.5 + x
+        x = self._macaron_ffn(x, self.norm4, self.ffn2)
         return self.norm5(x)
 
 
@@ -289,6 +312,17 @@ class DualStreamBlock(nn.Module):
         midi_msg = _glu(self.midi_gate(midi))
         bound_msg = _glu(self.bound_gate(bound))
         return midi + bound_msg, bound + midi_msg
+
+
+def set_kernel_impl(model: nn.Module, impl: str) -> None:
+    """Set the test-only ``impl`` switch of every kernel-backed module:
+    'plain' runs the kernels' plain versions on any device (to compare them
+    with the kernels on the card), 'auto' the kernels on a CUDA tensor."""
+    for module in model.modules():
+        if isinstance(module, (DepthwiseConv1d, SelfAttention)):
+            module.impl = impl
+        elif isinstance(module, ConformerBlock):
+            module.ffn_impl = impl
 
 
 class _Recompute:
@@ -325,7 +359,7 @@ class MidiConformer(nn.Module):
                  dtype: torch.dtype = torch.float32, mask_attention: bool = True,
                  attn_impl: str = "auto", conv_drop: float = 0.0, ffn_latent_drop: float = 0.0,
                  ffn_out_drop: float = 0.0, attention_drop: float = 0.0, remat: bool = True,
-                 remat_policy: str = "nothing"):
+                 remat_policy: str = "nothing", fuse_ffn: bool = False):
         super().__init__()
         self.lay = lay
         self.mask_attention = mask_attention
@@ -335,7 +369,8 @@ class MidiConformer(nn.Module):
         block_args = dict(kernel_size=kernel_size, heads=attention_heads,
                           head_dim=attention_heads_dim, attn_impl=attn_impl,
                           conv_drop=conv_drop, ffn_latent_drop=ffn_latent_drop,
-                          ffn_out_drop=ffn_out_drop, attention_drop=attention_drop)
+                          ffn_out_drop=ffn_out_drop, attention_drop=attention_drop,
+                          fuse_ffn=fuse_ffn)
         self.in_proj_midi = QDense(indim, dim, dtype=dtype)
         self.in_proj_bound = QDense(indim, dim, dtype=dtype)
         for i in range(lay):

@@ -20,7 +20,7 @@ class MidiExtractor(nn.Module):
                  attn_impl: str = "auto", use_lay_skip: bool = True, conv_drop: float = 0.1,
                  ffn_latent_drop: float = 0.1, ffn_out_drop: float = 0.1,
                  attention_drop: float = 0.1, remat: bool = True,
-                 remat_policy: str = "nothing"):
+                 remat_policy: str = "nothing", fuse_ffn: bool = False):
         super().__init__()
         del use_lay_skip  # stored but unused, as in the reference
         self.backbone = MidiConformer(
@@ -28,7 +28,8 @@ class MidiExtractor(nn.Module):
             attention_heads=attention_heads, attention_heads_dim=attention_heads_dim,
             dtype=dtype, mask_attention=mask_attention, attn_impl=attn_impl,
             conv_drop=conv_drop, ffn_latent_drop=ffn_latent_drop, ffn_out_drop=ffn_out_drop,
-            attention_drop=attention_drop, remat=remat, remat_policy=remat_policy)
+            attention_drop=attention_drop, remat=remat, remat_policy=remat_policy,
+            fuse_ffn=fuse_ffn)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 softmax: bool = False, sig: bool = False):
@@ -44,18 +45,15 @@ def build_midi_extractor(config: dict, dtype: torch.dtype = torch.float32,
                          mask_attention: bool = True) -> MidiExtractor:
     """The model of a SOME config: ``midi_extractor_args`` (the dropout
     rates among them) plus ``units_dim``, ``midi_num_bins``,
-    ``attention_impl``, ``use_remat`` and ``remat_policy``. Opt-in features
-    still to be ported raise."""
+    ``attention_impl``, ``use_remat``, ``remat_policy`` and ``fuse_ffn``.
+    ``quantize: int8``, still to be ported, raises."""
     if str(config.get("quantize", "none")) != "none":
         raise NotImplementedError("quantize: int8 is still to be ported: see ROADMAP.md")
-    if config.get("fuse_ffn", False):
-        raise NotImplementedError(
-            "fuse_ffn (the JAX package's fused LN->FFN kernel, K3) is still to be "
-            "ported: see ROADMAP.md, queue 2")
     args = {k: v for k, v in config["midi_extractor_args"].items()
             if k not in ("indim", "outdim")}
     return MidiExtractor(indim=config["units_dim"], outdim=config["midi_num_bins"],
                          dtype=dtype, mask_attention=mask_attention,
                          attn_impl=config.get("attention_impl", "auto"),
                          remat=bool(config.get("use_remat", True)),
-                         remat_policy=str(config.get("remat_policy", "nothing")), **args)
+                         remat_policy=str(config.get("remat_policy", "nothing")),
+                         fuse_ffn=bool(config.get("fuse_ffn", False)), **args)

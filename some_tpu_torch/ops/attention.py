@@ -1,32 +1,40 @@
 """Masked self-attention over ``[B, H, T, D]``, forward and backward.
 
-Counterpart of ``some_tpu/ops/attention.py``. On a CUDA tensor
-:func:`flash_attention` launches the hand-written Hopper kernels (which
-replace the Pallas TPU flash kernels behind ``_flash_attention_bhtd``) for
-every T; on a CPU tensor it runs :func:`attention_plain`, the arithmetic of
-the JAX ``_xla_attention``, whose autograd is the plain backward.
+Counterpart of ``some_tpu/ops/attention.py``, with two kernel families of
+different semantics, as in the JAX package:
+
+* **flash** (``attention_impl`` 'auto' / 'flash'; K2). On a CUDA tensor
+  :func:`flash_attention` launches the hand-written Hopper kernels that
+  replace the Pallas TPU flash kernels behind ``_flash_attention_bhtd``; on
+  a CPU tensor it runs :func:`attention_plain`, the arithmetic of the JAX
+  ``_xla_attention``. The port follows ``_xla_attention``: a masked key
+  scores the finite ``NEG_INF``, so a padded query attends the real keys and
+  a row with no real key (a batch-padding row) averages v instead of turning
+  into NaN; P is rounded to the input dtype before P.V.
+* **splash** (``attention_impl: splash``; K4). :func:`splash_attention`
+  follows the JAX ``_splash_attention_bhtd`` and splash's own kernels: q is
+  pre-scaled in its dtype outside the kernel, padding is expressed as
+  **segment ids** (a padded query attends only padded keys, a real query
+  only real keys) with splash's mask value ``-0.7 * FLT_MAX``, P stays f32
+  in P.V and is normalized once at the end, and the training forward keeps
+  one f32 log-sum-exp per row. Its kernels are ``csrc/splash_attention.cu``
+  and ``csrc/splash_attention_bwd.cu``; :func:`splash_attention_plain` is
+  splash's reference, and a CPU tensor runs it.
 
 On the card, a call that needs no gradient launches the inference kernel
-(``csrc/flash_attention.cu``, counted in ``flash_attention.launches``). A
+(counted in ``flash_attention.launches`` / ``splash_attention.launches``). A
 call whose q, k or v needs a gradient goes through
-:class:`FlashAttentionFn`: the training forward also stores each query
-row's softmax statistics (m, l) (``flash_attention_fwd_res.launches``), and
-the backward runs the dk/dv and dq kernels of ``csrc/flash_attention_bwd.cu``
-(``flash_attention_bwd_dkv.launches``, ``flash_attention_bwd_dq.launches``)
-after ``delta = rowsum(dO * O)`` in plain PyTorch, as JAX computes it in
-XLA. The gradients are written in ``[B, T, H, D]`` storage viewed as
-``[B, H, T, D]``, the layout of the projections q, k and v are views of, so
-the transposes back cost nothing; the concatenation of dk and dv into the
-fused kv projection's gradient is the one copy, as with any split.
+:class:`FlashAttentionFn` / :class:`SplashAttentionFn`: the training forward
+also stores the row statistics (``*_fwd_res.launches``), and the backward
+runs the dk/dv and dq kernels (``*_bwd_dkv.launches``, ``*_bwd_dq.launches``)
+after ``rowsum(dO * O)`` in plain PyTorch, as JAX computes it in XLA. The
+gradients are written in ``[B, T, H, D]`` storage viewed as ``[B, H, T, D]``,
+the layout of the projections q, k and v are views of, so the transposes
+back cost nothing; the concatenation of dk and dv into the fused kv
+projection's gradient is the one copy, as with any split.
 
-The port follows ``_xla_attention``: a padded query attends the real keys.
-The JAX TPU flash path (segment ids) lets a padded query attend only padded
-keys, so the two JAX paths differ on padded frames; PERF.md says where that
-reaches a training loss.
-
-Key-mask semantics are those of ``_xla_attention``: a masked key scores the
-finite ``NEG_INF``, so a row with no real key (a batch-padding row) stays
-finite instead of turning into NaN, which would reach the decoder.
+The two JAX paths differ on padded frames; PERF.md says where that reaches a
+training loss.
 """
 from __future__ import annotations
 
@@ -61,14 +69,14 @@ def _strides(t: torch.Tensor):
 
 def _check(q, k, v, mask):
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash kernel takes float32 or bfloat16 q, k, v of one "
+        raise TypeError(f"attention kernels take float32 or bfloat16 q, k, v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"want q, k, v of one shape [B,H,T,D], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, H, T, D = q.shape
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash kernel supports head_dim in {HEAD_DIMS}, got {D}")
+        raise ValueError(f"attention kernels support head_dim in {HEAD_DIMS}, got {D}")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("q, k, v must be on one device")
     if mask is not None and (mask.shape != (B, T) or mask.dtype != torch.bool
@@ -103,12 +111,17 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _fn(name: str, n_ptrs: int, n_strides: int):
-    fn = getattr(_build.load("flash_attention_bwd" if "bwd" in name else "flash_attention"),
-                 name)
+    """The C entry point ``name`` from its library (flash or splash, forward
+    or backward), typed: the pointers, the four sizes, the stride arrays,
+    the flash kernels' scale (splash's q arrives pre-scaled), the dtype code
+    and the stream."""
+    family = "splash_attention" if "splash" in name else "flash_attention"
+    fn = getattr(_build.load(family + ("_bwd" if "bwd" in name else "")), name)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4
                    + [ctypes.POINTER(ctypes.c_longlong)] * n_strides
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + ([] if family == "splash_attention" else [ctypes.c_float])
+                   + [ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
@@ -225,15 +238,160 @@ flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dq.launches = 0
 
 
-def attention_bhtd(q, k, v, mask, scale, impl: str):
+# ---- splash attention (K4): segment ids, a pre-scaled q, one log-sum-exp ----
+
+# splash's DEFAULT_MASK_VALUE: the score of a key in another segment
+SPLASH_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def prescale(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """``(q * scale)`` in q's dtype, as the JAX wrapper forms it outside the
+    kernel: a Python scale meets a bf16 array as a bf16 number, so the scale
+    is rounded to q's dtype first."""
+    return q * float(torch.tensor(scale, dtype=q.dtype))
+
+
+def _segment_mask(mask: torch.Tensor) -> torch.Tensor:
+    """[B, T] bool -> [B, 1, T, T]: query and key in one segment (0 pad, 1 real)."""
+    return (mask[:, :, None] == mask[:, None, :])[:, None]
+
+
+def splash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """q, k, v ``[B, H, T, D]``, mask ``[B, T]`` bool or None -> ``[B, H, T, D]``.
+
+    Splash's own reference (``_attention_reference_default``) inside the JAX
+    wrapper ``_splash_attention_bhtd``: q pre-scaled in its dtype, f32
+    scores, ``SPLASH_MASK_VALUE`` across segments, f32 softmax, P times v
+    upcast in f32 (P not rounded), output in q's dtype. Autograd gives the
+    gradients, through the pre-scale as JAX's do."""
+    qs = prescale(q, scale)
+    scores = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    if mask is not None:
+        scores = scores.masked_fill(~_segment_mask(mask), SPLASH_MASK_VALUE)
+    weights = torch.softmax(scores, dim=-1)
+    return torch.matmul(weights, v.float()).to(q.dtype)
+
+
+def _splash_forward(qs, k, v, mask, counter):
+    """The forward kernel on a pre-scaled q, counted in ``counter.launches``;
+    with the log-sum-exp when ``counter`` is :func:`splash_attention_fwd_res`."""
+    _build.refuse_grad(counter.__name__, qs, k, v)
+    _check(qs, k, v, mask)
+    B, H, T, D = qs.shape
+    qs, k, v = (_last_contiguous(t) for t in (qs, k, v))
+    out = _bhtd_like(qs)
+    lse = (torch.empty((B, H, T), dtype=torch.float32, device=qs.device)
+           if counter is splash_attention_fwd_res else None)
+    err = _fn("some_splash_attention_fwd", 6, 4)(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(mask), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, H, T, D, _strides(qs), _strides(k),
+        _strides(v), _strides(out), _DTYPE_CODES[qs.dtype], _stream(qs))
+    _build.check(err, counter.__name__)
+    counter.launches += 1
+    return out, lse
+
+
+def splash_attention_fwd_res(qs, k, v, mask):
+    """The training forward kernel: the output and each query row's f32
+    log-sum-exp ``log(l) + m`` ``[B, H, T]``, the residual the backward
+    rebuilds P from."""
+    return _splash_forward(qs, k, v, mask, splash_attention_fwd_res)
+
+
+def splash_attention_bwd_dkv(qs, k, v, dout, lse, di, mask):
+    """dk, dv from the dk/dv kernel."""
+    _build.refuse_grad("splash_attention_bwd_dkv", qs, k, v, dout)
+    B, H, T, D = qs.shape
+    dk, dv = _bhtd_like(qs), _bhtd_like(qs)
+    err = _fn("some_splash_attention_bwd_dkv", 9, 6)(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), _mask_ptr(mask), dk.data_ptr(), dv.data_ptr(), B, H, T, D,
+        _strides(qs), _strides(k), _strides(v), _strides(dout), _strides(dk), _strides(dv),
+        _DTYPE_CODES[qs.dtype], _stream(qs))
+    _build.check(err, "splash_attention_bwd_dkv")
+    splash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def splash_attention_bwd_dq(qs, k, v, dout, lse, di, mask):
+    """The gradient of the pre-scaled q from the dq kernel."""
+    _build.refuse_grad("splash_attention_bwd_dq", qs, k, v, dout)
+    B, H, T, D = qs.shape
+    dq = _bhtd_like(qs)
+    err = _fn("some_splash_attention_bwd_dq", 8, 5)(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), _mask_ptr(mask), dq.data_ptr(), B, H, T, D,
+        _strides(qs), _strides(k), _strides(v), _strides(dout), _strides(dq),
+        _DTYPE_CODES[qs.dtype], _stream(qs))
+    _build.check(err, "splash_attention_bwd_dq")
+    splash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def splash_attention_backward(qs, k, v, out, dout, lse, mask):
+    """dqs, dk, dv on the card: ``di = rowsum(O * dO)`` in f32 plain PyTorch
+    (JAX computes it in XLA), then the dk/dv kernel and the dq kernel."""
+    _check(qs, k, v, mask)
+    qs, k, v, dout = (_last_contiguous(t) for t in (qs, k, v, dout))
+    di = (out.float() * dout.float()).sum(-1).contiguous()
+    dk, dv = splash_attention_bwd_dkv(qs, k, v, dout, lse, di, mask)
+    dq = splash_attention_bwd_dq(qs, k, v, dout, lse, di, mask)
+    return dq, dk, dv
+
+
+class SplashAttentionFn(torch.autograd.Function):
+    """The splash kernels as one differentiable op on the pre-scaled q;
+    saves qs, k, v, the output, the log-sum-exp and the mask."""
+
+    @staticmethod
+    def forward(ctx, qs, k, v, mask):
+        out, lse = splash_attention_fwd_res(qs, k, v, mask)
+        ctx.save_for_backward(qs, k, v, out, lse, mask)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qs, k, v, out, lse, mask = ctx.saved_tensors
+        dq, dk, dv = splash_attention_backward(qs, k, v, out, dout, lse, mask)
+        return dq, dk, dv, None
+
+
+def splash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """``[B, H, T, D]`` splash attention: q pre-scaled in plain PyTorch, then
+    the CUDA kernels for a CUDA tensor (through :class:`SplashAttentionFn`
+    when q, k or v needs a gradient), the plain version for a CPU tensor.
+    ``splash_attention.launches`` counts the inference kernel."""
+    if q.device.type == "cpu":
+        return splash_attention_plain(q, k, v, mask, scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no attention kernel for device {q.device}")
+    qs = prescale(q, scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return SplashAttentionFn.apply(qs, k, v, mask)
+    return _splash_forward(qs, k, v, mask, splash_attention)[0]
+
+
+splash_attention.launches = 0
+splash_attention_fwd_res.launches = 0
+splash_attention_bwd_dkv.launches = 0
+splash_attention_bwd_dq.launches = 0
+
+
+def attention_bhtd(q, k, v, mask, scale, impl: str, kernel_impl: str = "auto"):
     """Dispatch on the config's ``attention_impl``: 'auto' and 'flash' take
-    :func:`flash_attention`, 'xla' takes :func:`attention_plain` anywhere."""
-    if impl in ("auto", "flash"):
-        return flash_attention(q, k, v, mask, scale)
-    if impl == "xla":
-        return attention_plain(q, k, v, mask, scale)
+    :func:`flash_attention`, 'splash' :func:`splash_attention`, 'xla'
+    :func:`attention_plain` anywhere. ``kernel_impl='plain'`` (a test-only
+    switch) runs the chosen family's plain version on any device."""
+    if impl not in ("auto", "flash", "splash", "xla"):
+        raise ValueError(f"unknown attention_impl {impl!r}")
+    if kernel_impl not in ("auto", "plain"):
+        raise ValueError(f"unknown attention kernel impl {kernel_impl!r} (auto | plain)")
     if impl == "splash":
-        raise NotImplementedError(
-            "attention_impl 'splash' (the JAX package's splash kernel, K4) is "
-            "still to be ported: see ROADMAP.md, queue 2")
-    raise ValueError(f"unknown attention_impl {impl!r}")
+        fn = splash_attention_plain if kernel_impl == "plain" else splash_attention
+    elif impl == "xla" or kernel_impl == "plain":
+        fn = attention_plain
+    else:
+        fn = flash_attention
+    return fn(q, k, v, mask, scale)

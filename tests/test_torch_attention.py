@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from some_tpu.ops.attention import _xla_attention
-from some_tpu_torch.ops.attention import attention_bhtd, attention_plain, flash_attention
+from some_tpu_torch.ops.attention import (
+    attention_bhtd, attention_plain, flash_attention, splash_attention, splash_attention_plain,
+)
 
 
 def _inputs(B, H, T, D, seed):
@@ -62,14 +64,21 @@ def test_impl_dispatch():
     q, k, v, mask = _inputs(2, 2, 16, 32, seed=2)
     args = (_bhtd(q), _bhtd(k), _bhtd(v), torch.from_numpy(mask), 0.2)
     want = attention_plain(*args)
-    before = flash_attention.launches
+    before = flash_attention.launches, splash_attention.launches
     for impl in ("auto", "flash", "xla"):
         torch.testing.assert_close(attention_bhtd(*args, impl=impl), want, rtol=0, atol=0)
-    assert flash_attention.launches == before  # the CPU runs no kernel
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention_bhtd(*args, impl="splash")
+        torch.testing.assert_close(attention_bhtd(*args, impl=impl, kernel_impl="plain"), want,
+                                   rtol=0, atol=0)
+    want_splash = splash_attention_plain(*args)
+    for kernel_impl in ("auto", "plain"):
+        torch.testing.assert_close(attention_bhtd(*args, impl="splash", kernel_impl=kernel_impl),
+                                   want_splash, rtol=0, atol=0)
+    # the CPU runs no kernel
+    assert (flash_attention.launches, splash_attention.launches) == before
     with pytest.raises(ValueError):
         attention_bhtd(*args, impl="nope")
+    with pytest.raises(ValueError):
+        attention_bhtd(*args, impl="splash", kernel_impl="nope")
 
 
 @pytest.fixture

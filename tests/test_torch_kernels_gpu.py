@@ -14,9 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import grad_tolerance
+from chip_smoke import fused_ffn_tolerance, grad_tolerance, splash_forward_tolerance
 from some_tpu_torch.ops import attention as A
 from some_tpu_torch.ops import depthwise as W
+from some_tpu_torch.ops import fused_ffn as K3
 
 
 @pytest.fixture
@@ -44,6 +45,20 @@ def test_raw_launches_refuse_grad():
         A._launch(q, q.detach(), q.detach(), None, 0.1)
     with pytest.raises(RuntimeError, match="no backward"):
         A.flash_attention_fwd_res(q, q.detach(), q.detach(), None, 0.1)
+    qd = q.detach()
+    with pytest.raises(RuntimeError, match="no backward"):
+        A._splash_forward(q, qd, qd, None, A.splash_attention)
+    with pytest.raises(RuntimeError, match="no backward"):
+        A.splash_attention_fwd_res(q, qd, qd, None)
+    lse = torch.zeros(1, 2, 8)
+    for bwd in (A.splash_attention_bwd_dkv, A.splash_attention_bwd_dq):
+        with pytest.raises(RuntimeError, match="no backward"):
+            bwd(q, qd, qd, qd, lse, lse, None)
+    h = torch.randn(1, 8, 64, requires_grad=True)
+    vecs = [torch.ones(64), torch.zeros(64), torch.zeros(64, 256), torch.zeros(256),
+            torch.zeros(256, 64), torch.zeros(64)]
+    with pytest.raises(RuntimeError, match="no backward"):
+        K3._launch(h, *vecs, 1e-5, 0.5)
     with torch.no_grad():  # the inference path: no gradient wanted, nothing refused
         with pytest.raises(RuntimeError, match="nvcc|CUDA|cuda"):
             W._launch(x, w, W.depthwise_conv1d)
@@ -113,4 +128,57 @@ def test_attention_backward_matches_plain_autograd(cuda, B, H, T, D, dtype):
     assert torch.equal(grads[1][0, :, T * 2 // 3:], torch.zeros_like(grads[1][0, :, T * 2 // 3:]))
     # no atomics: a second run gives the same bits
     again = torch.autograd.grad(A.flash_attention(q, k, v, mask, scale), (q, k, v), do)
+    assert all(torch.equal(a, b) for a, b in zip(again, grads))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,D,H", [((2, 300), 512, 2048), ((3, 77), 64, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ffn_matches_plain(cuda, shape, D, H, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    randn = lambda *s: torch.randn(s, generator=gen, device=cuda)
+    weights = [1.0 + 0.1 * randn(D), 0.1 * randn(D), randn(D, H) * D ** -0.5, 0.1 * randn(H),
+               randn(H, D) * H ** -0.5, 0.1 * randn(D)]
+    x = randn(*shape, D).to(dtype)
+    before = K3.fused_ln_ffn_residual.launches
+    got = K3.fused_ln_ffn_residual(x, *weights)
+    torch.cuda.synchronize()
+    assert K3.fused_ln_ffn_residual.launches == before + 1
+    want = K3.fused_ln_ffn_residual(x, *weights, impl="plain")
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    assert ((got.float() - want.float()).abs() <= fused_ffn_tolerance(torch, want)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,T,D", [(3, 2, 130, 64), (2, 4, 200, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_splash_matches_plain_forward_and_autograd(cuda, B, H, T, D, dtype):
+    q, k, v, do, mask = _attention_inputs(B, H, T, D, dtype, cuda, seed=T + 1)
+    scale = D ** -0.5
+    with torch.no_grad():
+        before = A.splash_attention.launches
+        got = A.splash_attention(q, k, v, mask, scale)
+        assert A.splash_attention.launches == before + 1
+        want = A.splash_attention_plain(q, k, v, mask, scale)
+        assert ((got.float() - want.float()).abs() <= splash_forward_tolerance(torch, want)).all()
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    before = (A.splash_attention_fwd_res.launches, A.splash_attention_bwd_dkv.launches,
+              A.splash_attention_bwd_dq.launches, A.splash_attention.launches)
+    out = A.splash_attention(q, k, v, mask, scale)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (A.splash_attention_fwd_res.launches, A.splash_attention_bwd_dkv.launches,
+            A.splash_attention_bwd_dq.launches, A.splash_attention.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+    assert torch.equal(out, got)
+    wants = torch.autograd.grad(A.splash_attention_plain(q, k, v, mask, scale), (q, k, v), do)
+    for name, g, w in zip("qkv", grads, wants):
+        _assert_close(g, w, 0.1 if dtype == torch.bfloat16 else 5e-5, f"d{name}")
+    # with dO zero on the padded queries no gradient reaches a padded frame
+    zeroed = torch.autograd.grad(A.splash_attention(q, k, v, mask, scale), (q, k, v),
+                                 do * mask[:, None, :, None])
+    for g in zeroed:
+        assert torch.equal(g.transpose(1, 2)[~mask], torch.zeros_like(g.transpose(1, 2)[~mask]))
+    again = torch.autograd.grad(A.splash_attention(q, k, v, mask, scale), (q, k, v), do)
     assert all(torch.equal(a, b) for a, b in zip(again, grads))

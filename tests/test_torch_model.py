@@ -142,11 +142,22 @@ def test_padded_bucket_equivalence(jax_variables):
     torch.testing.assert_close(bound_pad[:, :T], bound, atol=1e-5, rtol=1e-5)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(jax_variables):
+    """int8 is still to port and raises; ``fuse_ffn`` builds, and its eval
+    forward equals the unfused one in f32."""
     config = {"units_dim": INDIM, "midi_num_bins": OUTDIM,
               "midi_extractor_args": {k: v for k, v in GEOMETRY.items()
                                       if k not in ("indim", "outdim")}}
-    with pytest.raises(NotImplementedError, match="K3"):
-        build_midi_extractor(dict(config, fuse_ffn=True))
     with pytest.raises(NotImplementedError, match="int8"):
         build_midi_extractor(dict(config, quantize="int8"))
+    fused = build_midi_extractor(dict(config, fuse_ffn=True)).eval()
+    load_jax_variables(fused, jax_variables["params"], jax_variables["batch_stats"])
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((2, 33, INDIM)).astype(np.float32))
+    mask = torch.ones((2, 33), dtype=torch.bool)
+    mask[1, 20:] = False
+    with torch.no_grad():
+        got = fused(x, mask=mask, sig=True)
+        want = _torch_model(jax_variables)(x, mask=mask, sig=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=5e-6, rtol=0)
