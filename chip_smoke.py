@@ -8,11 +8,15 @@ Run from the root of a checkout, with no arguments:
 Phases, each of which raises (and so exits non-zero) on failure:
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles every kernel under some_tpu_torch/csrc with nvcc, all
-     sources at once, and prints each one's registers and spills;
+     sources at once, and prints each one's registers and spills; counts
+     the tensor-core instructions (HMMA) of the bf16 kernels that run on
+     the tensor cores, in the SASS of the built libraries (cuobjdump), and
+     raises if one has none;
   3. every kernel against its plain version on the card, with its times:
      K1 (depthwise conv) forward, dx, dw; K2 (flash attention) forward,
      forward with statistics, dk/dv, dq; K3 (fused LN -> FFN -> residual);
      K4 (splash attention) forward, forward with log-sum-exp, dk/dv, dq;
+     for the tensor-core kernels, the time against SDPA and the bound;
   4. the infer path: ``some_tpu_torch.infer`` at production geometry
      (configs/midi_conformer.yaml: 8 dual-stream layers, dim 512, 8 x 64
      heads, k=31), random weights from a seed, on synthetic songs, in bf16
@@ -68,6 +72,32 @@ def bound(nbytes, flops, peak_flops):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / peak_flops * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+# The bf16 kernels on the tensor cores (attention_mma.cuh): (library, kernel name, wrapper)
+TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_stats_mma_kernel", "flash_attention_fwd_res"),
+                       ("splash_attention", "splash_fwd_mma_kernel", "splash_attention"),
+                       ("splash_attention", "splash_fwd_mma_kernel", "splash_attention_fwd_res"))
+
+
+def hmma_counts(libs, nvcc: str):
+    """HMMA instructions per kernel variant in the SASS of the flash and
+    splash forward libraries (``cuobjdump -sass``), keyed by mangled name.
+    Raises if a tensor-core kernel has none."""
+    cuobjdump = str(pathlib.Path(nvcc).parent / "cuobjdump")
+    counts = {}
+    for lib in sorted({lib for lib, _, _ in TENSOR_CORE_KERNELS}):
+        sass = subprocess.run([cuobjdump, "-sass", str(libs[lib])], capture_output=True,
+                              text=True, check=True).stdout
+        for block in sass.split("Function : ")[1:]:
+            name = block.split()[0]
+            if "fwd" in name:
+                counts[name] = sum("HMMA" in line for line in block.splitlines())
+    for _, kernel, _ in TENSOR_CORE_KERNELS:
+        found = {n: c for n, c in counts.items() if kernel in n}
+        if not found or min(found.values()) == 0:
+            raise AssertionError(f"{kernel}: no HMMA instruction in its SASS ({found})")
+    return counts
 
 
 def bf16_ulp(torch, ref):
@@ -148,6 +178,16 @@ def attention_tolerance(torch, want):
     return 2 * bf16_ulp(torch, want) + 0.02 * float(want.pow(2).mean().sqrt())
 
 
+def key_pairs(mask):
+    """The (query, key) pairs of one head that K2's function needs: in a row
+    with a real key, every query against the real keys (a masked key's
+    probability and gradients are exactly 0 there); in an all-masked row all
+    T^2 (the masked keys carry the uniform average)."""
+    T = mask.shape[1]
+    real = mask.sum(dim=1).double()
+    return int((T * real + (real == 0).double() * T * T).sum())
+
+
 def check_attention(torch):
     import torch.nn.functional as F
     from some_tpu_torch.ops.attention import attention_plain, flash_attention
@@ -193,7 +233,7 @@ def check_attention(torch):
             sdpa_mask = (mask | ~real[:, None])[:, None, None, :]
             itemsize = q.element_size()
             bound_ms, bound_by = bound(4 * B * H * T * D * itemsize + B * T,
-                                       4 * B * H * T * T * D, PEAK_FLOPS[str(dtype)[6:]])
+                                       4 * H * D * key_pairs(mask), PEAK_FLOPS[str(dtype)[6:]])
             rows.append({
                 "shape": list(shape), "dtype": str(dtype)[6:], "max_abs_diff": max_diff,
                 "max_abs_diff_all_masked_row": max_diff_empty, "max_diff_over_tol": max_ratio,
@@ -521,7 +561,7 @@ def check_attention_backward(torch):
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = {"flash_attention_fwd_res": [], "flash_attention_bwd_dkv": [],
             "flash_attention_bwd_dq": []}
-    for shape in ((8, 8, 1024, 64), (1, 8, 8192, 64)):
+    for shape in ((8, 8, 1024, 64), (8, 8, 2048, 64), (1, 8, 8192, 64), (2, 2, 77, 32)):
         for dtype in (torch.bfloat16, torch.float32):
             B, H, T, D = shape
             q, k, v, do = (torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
@@ -561,7 +601,7 @@ def check_attention_backward(torch):
             lib_out = F.scaled_dot_product_attention(*lib_leaves, attn_mask=sdpa_mask)
             isz = q.element_size()
             peak = PEAK_FLOPS[str(dtype)[6:]]
-            flops = B * H * T * T * D
+            flops = H * D * key_pairs(mask)
             plain_bwd = lambda: torch.autograd.grad(want_out, leaves, do, retain_graph=True)
             lib_bwd = lambda: torch.autograd.grad(lib_out, lib_leaves, do, retain_graph=True)
 
@@ -707,7 +747,7 @@ def check_splash(torch):
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     rows = []
-    for shape in ((8, 8, 1024, 64), (1, 8, 8192, 64), (2, 2, 77, 32)):
+    for shape in ((8, 8, 1024, 64), (8, 8, 2048, 64), (1, 8, 8192, 64), (2, 2, 77, 32)):
         for dtype in (torch.bfloat16, torch.float32):
             B, H, T, D = shape
             q, k, v, _, mask = splash_inputs(torch, gen, shape, dtype)
@@ -767,7 +807,7 @@ def check_splash_backward(torch):
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = {"splash_attention_fwd_res": [], "splash_attention_bwd_dkv": [],
             "splash_attention_bwd_dq": []}
-    for shape in ((8, 8, 1024, 64), (1, 8, 8192, 64), (2, 2, 77, 32)):
+    for shape in ((8, 8, 1024, 64), (8, 8, 2048, 64), (1, 8, 8192, 64), (2, 2, 77, 32)):
         for dtype in (torch.bfloat16, torch.float32):
             B, H, T, D = shape
             q, k, v, do, mask = splash_inputs(torch, gen, shape, dtype)
@@ -835,6 +875,21 @@ def check_splash_backward(torch):
             del lib_leaves, lib_out, plain_bwd, lib_bwd, seg
             torch.cuda.empty_cache()
     return rows
+
+
+def report_tensor_core_kernels(rows, hmma):
+    """Per tensor-core kernel at the training shapes in bf16: its time, the
+    ratio to SDPA's (one PyTorch call, the same inputs) and the share of its
+    bound."""
+    for _, kernel, name in TENSOR_CORE_KERNELS:
+        counts = {n: c for n, c in hmma.items() if kernel in n}
+        for r in rows[name]:
+            if r["dtype"] != "bfloat16" or r["shape"][:2] != [8, 8]:
+                continue
+            log(f"  {name} ({kernel}, {sum(counts.values())} HMMA in {len(counts)} variants) "
+                f"{r['shape']}: {r['kernel_ms']:.4f} ms, {r['kernel_ms'] / r['library_ms']:.2f}x "
+                f"SDPA ({r['library_ms']:.4f} ms), {r['bound_ms'] / r['kernel_ms']:.1%} of its "
+                f"bound ({r['bound_ms']:.4f} ms, {r['bound_by']})")
 
 
 def make_item(rng, n_frames, n_notes, units_dim):
@@ -1184,6 +1239,8 @@ def main() -> int:
                      for line in report if "spill stores" in line)
         log(f"  {name}: {len(regs)} kernel variants, at most {max(regs)} registers, "
             f"{spills} bytes of spill stores")
+    hmma = hmma_counts(libs, _build.nvcc_path())
+    log("HMMA instructions per forward kernel variant (cuobjdump -sass): " + json.dumps(hmma))
 
     rows = {"depthwise_conv1d": check_depthwise(torch), "flash_attention": check_attention(torch)}
     rows.update(check_depthwise_backward(torch))
@@ -1191,6 +1248,7 @@ def main() -> int:
     rows["fused_ln_ffn_residual"] = check_fused_ffn(torch)
     rows["splash_attention"] = check_splash(torch)
     rows.update(check_splash_backward(torch))
+    report_tensor_core_kernels(rows, hmma)
 
     launches, results = {}, {}
     with tempfile.TemporaryDirectory(prefix="some_tpu_torch_smoke_") as tmp:
@@ -1223,7 +1281,10 @@ def main() -> int:
     def entry(name, source, replaces):
         head = rows[name][0]  # [8, ...] bf16: the production dtype at a main-path batch
         by_path = {path: counts[name] for path, counts in launches.items()}
+        tensor_core = [kernel for _, kernel, wrapper in TENSOR_CORE_KERNELS if wrapper == name]
         return {"name": name, "route": "cuda", "source": f"some_tpu_torch/csrc/{source}",
+                "bf16_hmma": ({n: c for n, c in hmma.items() if tensor_core[0] in n}
+                              if tensor_core else None),
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "launches_per_train_step": {

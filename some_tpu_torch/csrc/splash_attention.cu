@@ -10,17 +10,27 @@
 // dtype, and on request lse = log(l) + m per query row in f32. Segments: splash_common.cuh.
 //
 // Bound: operations once T is long (4 * B * H * T^2 * D flops against 4 * B * H * T * D
-// elements moved). Like the flash kernels, this first version does its products as f32 FMAs on
-// the CUDA cores, not on the tensor cores, so it runs far from that bound; f32 inputs stay in true
-// f32 (no TF32).
+// elements moved). f32 inputs stay in true f32 (no TF32) on the CUDA cores; bf16 inputs go to
+// splash_fwd_mma_kernel on the tensor cores (below).
 //
-// Design: the flash inference kernel's (flash_attention.cu): a block owns 64 queries of one
+// f32 design: the flash inference kernel's (flash_attention.cu): a block owns 64 queries of one
 // (batch, head) and 128 threads, keeps Q^T in shared memory and walks the keys in tiles of 64,
 // staging K^T, V and the keys' segment codes; each thread holds a 4 x 8 block of the score tile
 // and a 4 x D/8 block of the output in f32 registers with the running max and sum. Any T: keys
 // past T score -inf and drop out, queries past T are computed and not stored. Inputs are read and
 // the output written through their strides, so all may be [B, H, T, D] views of [B, T, H, D]
 // storage.
+//
+// bf16 design: the same single pass on the tensor-core tile of attention_mma.cuh. P stays f32 in
+// P.V, as splash keeps it: each p is split into hi (p cut to bf16) and lo = bf16(p - hi), and two
+// mma.sync into one f32 accumulator multiply both with v, within about 2^-16 |p| of the f32
+// product, where rounding P to bf16 alone would change the semantics. A key tile is skipped when
+// no key of it shares a segment with a query of the block: its contributions would be multiplied
+// by an alpha that is exactly 0, or are exp(mask value - m) = 0. With and without lse it is one
+// template, so the two outputs stay bit for bit equal.
+#include <type_traits>
+
+#include "attention_mma.cuh"
 #include "splash_common.cuh"
 
 namespace {
@@ -156,19 +166,142 @@ splash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   }
 }
 
+// The bf16 forward on the tensor cores: splash_fwd_kernel's arithmetic (see the note at the top)
+// on the tile of attention_mma.cuh. Warp w owns query rows 16 w .. 16 w + 15; a thread holds rows
+// g and g + 8 (lane = 4 g + c) of each score and output tile.
+template <int D>
+__global__ void __launch_bounds__(some_mma::kThreads)
+splash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
+                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int t_len,
+                      Strides qs, Strides ks, Strides vs_, Strides os) {
+  namespace mma = some_mma;
+  using L = mma::Layout<D>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  const mma::Smem sm = mma::carve_smem<D>(mma_smem, t_len);
+  const int q0 = blockIdx.x * mma::kRows;
+  const bf16* kb = mma::head_slice(k, ks);
+  const bf16* vb = mma::head_slice(v, vs_);
+  const uint8_t* mb = mask ? mask + static_cast<size_t>(blockIdx.z) * t_len : nullptr;
+
+  mma::stage_q<D>(sm, mma::head_slice(q, qs), qs.t, q0, t_len);
+  // walk the tiles holding a key of a segment that a query of this block (tile blockIdx.x) has
+  mma::TileFilter filter{nullptr, nullptr, false, true};
+  if (mb != nullptr) {
+    mma::tile_segments(sm, mb, t_len);
+    const uint32_t bit = 1u << (blockIdx.x & 31);
+    filter = mma::TileFilter{sm.seg0, sm.seg1, (sm.seg0[blockIdx.x >> 5] & bit) != 0u,
+                             (sm.seg1[blockIdx.x >> 5] & bit) != 0u};
+  }
+  const int q_seg[2] = {segment_of(mb, q0 + mma::thread_row(0), t_len),
+                        segment_of(mb, q0 + mma::thread_row(1), t_len)};
+  uint32_t qf[L::kKSteps][4];
+  mma::load_q_fragments<D>(qf, sm);
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float o[L::kOutTiles][4] = {};
+  mma::walk_tiles<D, true>(
+      sm, filter, kb, ks.t, vb, vs_.t, mb, t_len,
+      [&](int j, const bf16* k_tile, const bf16* v_tile, uint64_t real) {
+        float s[8][4];
+        mma::score_tile<D>(s, qf, k_tile);
+        // the scores stay as they are where every key is real and both rows are real queries
+        if (!(real == ~0ull && q_seg[0] == 1 && q_seg[1] == 1)) {
+          const uint32_t segment = mma::thread_columns(real);
+          const uint32_t below_t = mma::thread_columns(mma::below_t_bits(j * mma::kRows, t_len));
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int bit = 2 * n + (e & 1);
+              s[n][e] = splash_score(
+                  s[n][e], ((below_t >> bit) & 1u) ? static_cast<int>((segment >> bit) & 1u) : kPastT,
+                  q_seg[e >> 1]);
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float tile_max = -INFINITY;
+#pragma unroll
+          for (int n = 0; n < 8; ++n) tile_max = fmaxf(tile_max, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
+          // finite: a walked tile holds a key below T (the mask value at worst, until a key of
+          // the query's own segment arrives and alpha = 0 drops what came before)
+          const float m_new = fmaxf(m[i], mma::quad_max(tile_max));
+          const float alpha = mma::exp_(m[i] - m_new);  // 0 on the first tile, where m is -inf
+          m[i] = m_new;
+          l[i] *= alpha;
+#pragma unroll
+          for (int n = 0; n < L::kOutTiles; ++n) {
+            o[n][2 * i] *= alpha;
+            o[n][2 * i + 1] *= alpha;
+          }
+        }
+        // P f32 into P.V, as splash keeps it: p = hi + lo, two bf16 A fragments, 16 keys a step;
+        // register 2 hh + i holds row i's pair of score tile 2 kstep + hh
+#pragma unroll
+        for (int kstep = 0; kstep < 4; ++kstep) {
+          uint32_t pf[2][4];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const float* x = s[2 * kstep + hh] + 2 * i;
+              const float p0 = mma::exp_(__fsub_rn(x[0], m[i]));
+              const float p1 = mma::exp_(__fsub_rn(x[1], m[i]));
+              l[i] += p0;
+              l[i] += p1;
+              // hi: p cut to its bf16 bits (the high halves, packed by one byte permute); lo:
+              // the exact rest p - hi, rounded to bf16
+              const uint32_t u0 = __float_as_uint(p0), u1 = __float_as_uint(p1);
+              pf[0][2 * hh + i] = __byte_perm(u0, u1, 0x7632);
+              pf[1][2 * hh + i] = mma::pack_bf16(
+                  __floats2bfloat162_rn(p0 - __uint_as_float(u0 & 0xffff0000u),
+                                        p1 - __uint_as_float(u1 & 0xffff0000u)));
+            }
+          mma::pv_step<D, 2>(o, pf, v_tile, kstep);
+        }
+      });
+
+  float inv_l[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = mma::quad_sum(l[i]);
+    inv_l[i] = 1.0f / l[i];
+  }
+  mma::store_output<D>(mma::head_slice(out, os), os.t, q0, t_len, o, inv_l);
+  if (lse == nullptr || (threadIdx.x & 3) != 0) return;
+  const size_t row0 = (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * t_len;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = q0 + mma::thread_row(i);
+    if (t < t_len) lse[row0 + t] = logf(l[i]) + m[i];
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
                    float* lse, int batch, int heads, int t_len, Strides qs, Strides ks,
                    Strides vs_, Strides os, cudaStream_t stream) {
-  const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(splash_fwd_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((t_len + kBQ - 1) / kBQ, heads, batch);
-  splash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(out), lse, t_len, qs, ks, vs_, os);
-  return cudaGetLastError();
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const uint8_t* mp = static_cast<const uint8_t*>(mask);
+  T* op = static_cast<T*>(out);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // bf16 runs on the tensor cores; f32 stays on the CUDA cores (true f32)
+    return some_mma::launch_blocks<D>(splash_fwd_mma_kernel<D>, batch, heads, t_len, stream, qp,
+                                      kp, vp, mp, op, lse, t_len, qs, ks, vs_, os);
+  } else {
+    const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
+    const cudaError_t err = cudaFuncSetAttribute(
+        splash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((t_len + kBQ - 1) / kBQ, heads, batch);
+    splash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(qp, kp, vp, mp, op, lse, t_len, qs,
+                                                             ks, vs_, os);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace

@@ -33,6 +33,11 @@ the layout of the projections q, k and v are views of, so the transposes
 back cost nothing; the concatenation of dk and dv into the fused kv
 projection's gradient is the one copy, as with any split.
 
+In bf16 the training forward and the splash forward run on the tensor cores
+(``csrc/attention_mma.cuh``), which copy 16-byte rows with ``cp.async``:
+their wrappers raise on a bf16 row that is not 16-byte aligned. f32 runs on
+the CUDA cores in true f32.
+
 The two JAX paths differ on padded frames; PERF.md says where that reaches a
 training loss.
 """
@@ -96,6 +101,19 @@ def _bhtd_like(q: torch.Tensor) -> torch.Tensor:
     return torch.empty((B, T, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
 
 
+def _check_rows_aligned(what: str, *tensors) -> None:
+    """The bf16 training forward and splash forward run on the tensor cores
+    and copy rows of 16 bytes with ``cp.async``: every row of q, k, v and
+    the output must start on a 16-byte boundary (data pointers and the
+    batch, head and time strides). The model's [B, H, T, D] views of
+    [B, T, H, D] storage meet this; there is no fallback to another kernel."""
+    for t in tensors:
+        if t.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in t.stride()[:3])):
+            raise ValueError(f"{what}: bf16 rows must be 16-byte aligned for cp.async, got "
+                             f"strides {t.stride()} at address {t.data_ptr():#x}")
+
+
 def _mask_ptr(mask):
     """The mask's address; _check has made sure it is a [B, T] bool tensor,
     which its constructors make contiguous."""
@@ -149,6 +167,7 @@ def flash_attention_fwd_res(q, k, v, mask, scale):
     B, H, T, D = q.shape
     q, k, v = (_last_contiguous(t) for t in (q, k, v))
     out = _bhtd_like(q)
+    _check_rows_aligned("flash_attention_fwd_res", q, k, v, out)
     stats = torch.empty((B, H, T, 2), dtype=torch.float32, device=q.device)
     err = _fn("some_flash_attention_fwd_stats", 6, 4)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(mask), out.data_ptr(),
@@ -281,6 +300,7 @@ def _splash_forward(qs, k, v, mask, counter):
     B, H, T, D = qs.shape
     qs, k, v = (_last_contiguous(t) for t in (qs, k, v))
     out = _bhtd_like(qs)
+    _check_rows_aligned(counter.__name__, qs, k, v, out)
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=qs.device)
            if counter is splash_attention_fwd_res else None)
     err = _fn("some_splash_attention_fwd", 6, 4)(

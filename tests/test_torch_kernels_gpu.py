@@ -98,9 +98,28 @@ def _attention_inputs(B, H, T, D, dtype, device, seed):
     return q, k, v, do, mask.to(device)
 
 
+# (B, H, T, D): ragged T (not a multiple of the 64-key tile, and one long
+# enough for many tiles) at both head dims, and a head stride of 4 heads;
+# _attention_inputs adds a padded tail and an all-masked row
+GRID = [(3, 2, T, D) for T in (77, 130, 200, 1000) for D in (32, 64)] + [(2, 4, 200, 32)]
+DTYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = pytest.mark.parametrize("D", [32, 64])
+
+# At two points of the grid the bf16 K2 dk/dv kernel misses the 0.02 RMS
+# bound on dk against the plain autograd, with the tensor-core training
+# forward and with the CUDA-core one it replaced alike: a fault of the
+# backward against its bound (ROADMAP.md queue 3). Strict, so the suite
+# fails once the kernel meets it.
+K2_DK_GAP = pytest.mark.xfail(strict=True, raises=AssertionError,
+                              reason="bf16 K2 dk misses its 0.02 RMS bound (ROADMAP.md queue 3)")
+K2_BACKWARD = [pytest.param(*point, dtype, id="-".join(map(str, point)) + f"-{str(dtype)[6:]}",
+                            marks=K2_DK_GAP if dtype == torch.bfloat16
+                            and point in ((3, 2, 77, 64), (3, 2, 200, 64)) else ())
+               for point in GRID for dtype in DTYPES]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,H,T,D", [(3, 2, 130, 64), (2, 4, 200, 32)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,T,D,dtype", K2_BACKWARD)
 def test_attention_backward_matches_plain_autograd(cuda, B, H, T, D, dtype):
     q, k, v, do, mask = _attention_inputs(B, H, T, D, dtype, cuda, seed=T)
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
@@ -150,8 +169,8 @@ def test_fused_ffn_matches_plain(cuda, shape, D, H, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,H,T,D", [(3, 2, 130, 64), (2, 4, 200, 32)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,T,D", GRID)
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_splash_matches_plain_forward_and_autograd(cuda, B, H, T, D, dtype):
     q, k, v, do, mask = _attention_inputs(B, H, T, D, dtype, cuda, seed=T + 1)
     scale = D ** -0.5
@@ -182,3 +201,125 @@ def test_splash_matches_plain_forward_and_autograd(cuda, B, H, T, D, dtype):
         assert torch.equal(g.transpose(1, 2)[~mask], torch.zeros_like(g.transpose(1, 2)[~mask]))
     again = torch.autograd.grad(A.splash_attention(q, k, v, mask, scale), (q, k, v), do)
     assert all(torch.equal(a, b) for a, b in zip(again, grads))
+
+
+def _cut_inputs(D, device, real=128, T=200):
+    """bf16 q, k, v as [B, H, T, D] views of [B, T, H, D] storage, row 0 real
+    up to ``real`` (a multiple of the 64-key tile) and padded after it, row 1
+    ragged."""
+    q, k, v, _, _ = _attention_inputs(2, 2, T, D, torch.bfloat16, device, seed=D)
+    mask = torch.ones((2, T), dtype=torch.bool, device=device)
+    mask[0, real:] = False
+    mask[1, T - 5:] = False
+    return q, k, v, mask
+
+
+@pytest.mark.gpu
+@HEAD_DIMS
+def test_flash_fwd_res_skips_masked_tiles_bit_for_bit(cuda, D):
+    """The key tiles past row 0's real length hold only masked keys, so the
+    bf16 training forward skips them for row 0's queries: its real rows equal,
+    bit for bit, the same call on the inputs cut at that length."""
+    q, k, v, mask = _cut_inputs(D, cuda)
+    L = 128
+    before = A.flash_attention_fwd_res.launches
+    out, stats = A.flash_attention_fwd_res(q, k, v, mask, D ** -0.5)
+    cut_out, cut_stats = A.flash_attention_fwd_res(q[:, :, :L], k[:, :, :L], v[:, :, :L],
+                                                   mask[:, :L].contiguous(), D ** -0.5)
+    torch.cuda.synchronize()
+    assert A.flash_attention_fwd_res.launches == before + 2
+    assert torch.equal(out[0, :, :L], cut_out[0])
+    assert torch.equal(stats[0, :, :L], cut_stats[0])
+
+
+@pytest.mark.gpu
+@HEAD_DIMS
+def test_splash_fwd_skips_other_segment_tiles_bit_for_bit(cuda, D):
+    """The key tiles past row 0's real length hold only padding keys, which
+    no real query attends: the bf16 splash forward skips them for the real
+    queries, whose outputs and log-sum-exps equal, bit for bit, the same call
+    on the inputs cut at that length; with and without lse alike."""
+    q, k, v, mask = _cut_inputs(D, cuda)
+    L = 128
+    qs = A.prescale(q, D ** -0.5)
+    out, lse = A.splash_attention_fwd_res(qs, k, v, mask)
+    cut_out, cut_lse = A.splash_attention_fwd_res(qs[:, :, :L], k[:, :, :L], v[:, :, :L],
+                                                  mask[:, :L].contiguous())
+    with torch.no_grad():
+        inference = A.splash_attention(q, k, v, mask, D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0, :, :L], cut_out[0])
+    assert torch.equal(lse[0, :, :L], cut_lse[0])
+    assert torch.equal(inference, out)
+
+
+@pytest.mark.gpu
+@HEAD_DIMS
+def test_splash_fwd_keeps_p_f32(cuda, D):
+    """P stays f32 in P.V (hi + lo, two bf16 products), so with v = 1 every
+    output, sum(p) / l, is 1 to about 2^-16: exactly 1 in bf16. P cut to bf16
+    (hi alone) loses about 2^-9 of the sum, which rounds below 1; the last
+    lines show that on the same scores, so this test would see it."""
+    B, H, T = 3, 2, 200
+    q, k, _, _, mask = _attention_inputs(B, H, T, D, torch.bfloat16, cuda, seed=D + 2)
+    v = torch.ones((B, T, H, D), dtype=torch.bfloat16, device=cuda).transpose(1, 2)
+    qs = A.prescale(q, D ** -0.5)
+    with torch.no_grad():
+        out = A.splash_attention(q, k, v, mask, D ** -0.5)
+    out_res, _ = A.splash_attention_fwd_res(qs, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.ones_like(out))
+    assert torch.equal(out_res, out)
+    same = (mask[:, :, None] == mask[:, None, :])[:, None]
+    s = (qs.float() @ k.float().transpose(-1, -2)).masked_fill(~same, A.SPLASH_MASK_VALUE)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    hi = (p.view(torch.int32) & -65536).view(torch.float32)
+    cut = (hi.sum(-1) / p.sum(-1)).to(torch.bfloat16)
+    assert float((cut < 1).float().mean()) > 0.5
+
+
+def _kernel_names(fn):
+    """The names of the CUDA kernels that ``fn()`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_kernels_route_by_dtype(cuda, dtype):
+    """bf16 inputs reach the tensor-core kernels and nothing else; f32 inputs
+    the CUDA-core kernels (true f32)."""
+    q, k, v, _, mask = _attention_inputs(2, 2, 130, 64, dtype, cuda, seed=9)
+    bf16 = dtype == torch.bfloat16
+    counts = A.flash_attention_fwd_res.launches, A.splash_attention_fwd_res.launches
+    flash = [n for n in _kernel_names(lambda: A.flash_attention_fwd_res(q, k, v, mask, 0.125))
+             if "flash_fwd" in n]
+    splash = [n for n in _kernel_names(lambda: A.splash_attention_fwd_res(q, k, v, mask))
+              if "splash_fwd" in n]
+    assert (A.flash_attention_fwd_res.launches, A.splash_attention_fwd_res.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert len(flash) == 1 and len(splash) == 1, (flash, splash)
+    assert ("flash_fwd_stats_mma_kernel" in flash[0]) == bf16, flash
+    assert "flash_fwd_stats" in flash[0], flash
+    assert ("splash_fwd_mma_kernel" in splash[0]) == bf16, splash
+
+
+def test_bf16_forward_refuses_misaligned_rows():
+    """cp.async copies 16-byte rows: a bf16 pointer or stride off that grid
+    raises before any launch, with no fallback to another kernel."""
+    storage = torch.zeros(2 * 2 * 16 * 32 + 1, dtype=torch.bfloat16)
+    shifted = storage[1:].view(2, 2, 16, 32)   # 2 bytes off a 16-byte boundary
+    wide = torch.zeros(2, 2, 16, 36, dtype=torch.bfloat16)[..., :32]  # 72-byte time stride
+    ok = torch.zeros(2, 2, 16, 32, dtype=torch.bfloat16)
+    for bad in (shifted, wide):
+        with pytest.raises(ValueError, match="16-byte"):
+            A.flash_attention_fwd_res(bad, ok, ok, None, 0.1)
+        with pytest.raises(ValueError, match="16-byte"):
+            A.splash_attention_fwd_res(ok, ok, bad, None)
+        with torch.no_grad(), pytest.raises(ValueError, match="16-byte"):
+            A._splash_forward(ok, bad, ok, None, A.splash_attention)
