@@ -1,21 +1,23 @@
-// The tensor-core tile of the bf16 attention forward kernels on Hopper (flash_attention.cu's
-// training forward, splash_attention.cu's forward): bf16 tiles copied with cp.async into a
-// double-buffered ring in shared memory, read with ldmatrix, multiplied with
-// mma.sync.m16n8k16 (bf16 operands, f32 sums).
+// The tensor-core tile of the bf16 attention kernels on Hopper (flash_attention.cu's inference and
+// training forwards, splash_attention.cu's forward, flash_attention_bwd.cu's dk/dv kernel): bf16
+// tiles copied with cp.async into a double-buffered ring in shared memory, read with ldmatrix,
+// multiplied with mma.sync.m16n8k16 (bf16 operands, f32 sums).
 //
-// A block owns 64 queries of one (batch, head) and 4 warps; warp w owns query rows
+// A forward's block owns 64 queries of one (batch, head) and 4 warps; warp w owns query rows
 // 16 w .. 16 w + 15. Q is copied once and kept in registers as A fragments. K and V come in tiles
 // of 64 keys: while the warps multiply one tile, the copies of the next are in flight, and each
 // tile costs one barrier. Rows past T are zero-filled by the copy itself (cp.async's src-size 0),
-// so the ragged edge needs no branch.
+// so the ragged edge needs no branch. A dk/dv kernel swaps the sides: its block owns 64 keys, K
+// and V are its A fragments (carve_smem_kv), and the ring carries Q and dO.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16): lane = 4 g + c. The f32 accumulator of a
 // 16 x 8 tile holds rows g (registers 0, 1) and g + 8 (2, 3) at columns 2 c, 2 c + 1. The A
 // fragment of a 16 x 16 tile holds the same rows at columns 2 c, 2 c + 1 (registers 0, 1) and
-// 2 c + 8, 2 c + 9 (2, 3), two bf16 to a register. So the accumulators of two adjacent 8-key
-// score tiles, rounded to bf16 and packed in pairs, are the A fragment of P for those 16 keys:
-// P goes from the scores into P.V in registers, with no trip through shared memory. A row's max
-// and sum combine over the 4 lanes of its quad.
+// 2 c + 8, 2 c + 9 (2, 3), two bf16 to a register. So the accumulators of two adjacent 8-column
+// score tiles, rounded to bf16 and packed in pairs, are the A fragment of P (or of P^T and dS^T
+// in a dk/dv kernel) for those 16 columns: P goes from the scores into the next product in
+// registers, with no trip through shared memory. A row's max and sum combine over the 4 lanes of
+// its quad.
 //
 // Shared-memory rows are D + 8 bf16 long: 16 bytes of padding put the eight 16-byte rows that
 // one ldmatrix phase reads on distinct banks, and keep every row 16-byte aligned for cp.async.
@@ -25,8 +27,9 @@
 // the TPU: the result is bit for bit that of walking them.
 //
 // A kernel on this tile keeps only its score arithmetic and its softmax: the carving of shared
-// memory (carve_smem), Q's copy and fragments (stage_q, load_q_fragments), the walk over the key
-// tiles (walk_tiles), the output store (store_output) and the launch (launch_blocks) are here.
+// memory (carve_smem, carve_smem_kv), the A tile's copy and fragments (stage_q, load_q_fragments,
+// load_a_fragments), the walk over the tiles (walk_tiles), the output store (store_output) and
+// the launch (launch_grid, launch_blocks) are here.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -56,22 +59,33 @@ struct Layout {
   static constexpr int kOutTiles = D / 8;        // n8 tiles of a warp's output rows
 };
 
-// Dynamic shared memory: the Q tile, the K and V rings of two tiles each, and the two tile
-// bitmaps of TileFilter.
+// Dynamic shared memory of a forward: the Q tile, the K and V rings of two tiles each, and the
+// two tile bitmaps of TileFilter.
 template <int D>
 inline int smem_bytes(int n_tiles) {
   return 5 * Layout<D>::kTile * static_cast<int>(sizeof(bf16)) +
          2 * ((n_tiles + 31) / 32) * static_cast<int>(sizeof(uint32_t));
 }
 
-// A block's dynamic shared memory, carved as smem_bytes counts it.
+// Dynamic shared memory of a dk/dv kernel, which swaps the sides: the block's K and V tiles (A
+// operands, as Q is in a forward), the Q and dO rings of two tiles each, and the three f32 values
+// (m, l, delta) of the 64 queries of two query tiles. No bitmaps: every query tile is walked.
+template <int D>
+inline int smem_bytes_kv() {
+  return 6 * Layout<D>::kTile * static_cast<int>(sizeof(bf16)) +
+         2 * 3 * kRows * static_cast<int>(sizeof(float));
+}
+
+// A block's dynamic shared memory, carved as smem_bytes or smem_bytes_kv counts it.
 struct Smem {
-  bf16* q_tile;
-  bf16* k_ring;
-  bf16* v_ring;
-  uint32_t* seg0;  // TileFilter's bitmaps, n_words each
+  bf16* q_tile;    // the block's A-operand tile: Q in a forward, K in a dk/dv kernel
+  bf16* v_tile;    // a dk/dv kernel's second A-operand tile, V
+  bf16* k_ring;    // the walked tiles: K in a forward, Q in a dk/dv kernel
+  bf16* v_ring;    // V in a forward, dO in a dk/dv kernel
+  uint32_t* seg0;  // TileFilter's bitmaps, n_words each (forwards)
   uint32_t* seg1;
-  int n_tiles;  // key tiles of 64 below T
+  float* row_vals;  // a dk/dv kernel's per-query values: 2 x 64 (m, l) pairs, then 2 x 64 delta
+  int n_tiles;  // tiles of 64 below T
   int n_words;
 };
 
@@ -79,12 +93,28 @@ template <int D>
 __device__ __forceinline__ Smem carve_smem(unsigned char* base, int t_len) {
   Smem s;
   s.q_tile = reinterpret_cast<bf16*>(base);
+  s.v_tile = nullptr;
   s.k_ring = s.q_tile + Layout<D>::kTile;
   s.v_ring = s.k_ring + 2 * Layout<D>::kTile;
   s.n_tiles = (t_len + kRows - 1) / kRows;
   s.n_words = (s.n_tiles + 31) / 32;
   s.seg0 = reinterpret_cast<uint32_t*>(s.v_ring + 2 * Layout<D>::kTile);
   s.seg1 = s.seg0 + s.n_words;
+  s.row_vals = nullptr;
+  return s;
+}
+
+template <int D>
+__device__ __forceinline__ Smem carve_smem_kv(unsigned char* base, int t_len) {
+  Smem s;
+  s.q_tile = reinterpret_cast<bf16*>(base);
+  s.v_tile = s.q_tile + Layout<D>::kTile;
+  s.k_ring = s.v_tile + Layout<D>::kTile;
+  s.v_ring = s.k_ring + 2 * Layout<D>::kTile;
+  s.n_tiles = (t_len + kRows - 1) / kRows;
+  s.n_words = 0;
+  s.seg0 = s.seg1 = nullptr;
+  s.row_vals = reinterpret_cast<float*>(s.v_ring + 2 * Layout<D>::kTile);
   return s;
 }
 
@@ -102,6 +132,17 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 8 or 4 bytes global -> shared through L1 (cp.async.ca), zeros where valid is false.
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -136,6 +177,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 // Two f32 rounded to nearest bf16, the first in the low half (the lower column of a fragment).
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 v) {
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A pair of f32 as two bf16 pairs for two mma into one f32 accumulator, x = hi + lo: hi cut to
+// its bf16 bits (the high halves, packed by one byte permute), lo the exact rest x - hi rounded to
+// bf16. hi + lo is within about 2^-16 |x|, where one bf16 rounds by up to 2^-9.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const uint32_t u0 = __float_as_uint(x0), u1 = __float_as_uint(x1);
+  hi = __byte_perm(u0, u1, 0x7632);
+  lo = pack_bf16(__floats2bfloat162_rn(x0 - __uint_as_float(u0 & 0xffff0000u),
+                                       x1 - __uint_as_float(u1 & 0xffff0000u)));
 }
 
 // exp(x) as 2^(x log2 e) on the special-function unit (ex2.approx, about 2 ulp where the
@@ -184,19 +235,24 @@ __device__ __forceinline__ void stage_q(const Smem& sm, const bf16* qb, long lon
   cp_async_commit();
 }
 
-// Waits for stage_q's copy and reads the warp's 16 query rows of the Q tile as A fragments, one
-// per k16 step.
+// Reads the warp's 16 rows of a staged tile as A fragments, one per k16 step.
+template <int D>
+__device__ __forceinline__ void load_a_fragments(uint32_t (&f)[Layout<D>::kKSteps][4],
+                                                 const bf16* tile) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bf16* row = tile + (16 * warp + (lane & 7) + (((lane >> 3) & 1) << 3)) *
+                               Layout<D>::kStride + ((lane >> 4) << 3);
+#pragma unroll
+  for (int kk = 0; kk < Layout<D>::kKSteps; ++kk) ldmatrix_x4(f[kk], row + 16 * kk);
+}
+
+// Waits for stage_q's copy and reads the warp's 16 query rows of the Q tile as A fragments.
 template <int D>
 __device__ __forceinline__ void load_q_fragments(uint32_t (&qf)[Layout<D>::kKSteps][4],
                                                  const Smem& sm) {
   cp_async_wait_all();
   __syncthreads();
-  const bf16* q_tile = sm.q_tile;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bf16* row = q_tile + (16 * warp + (lane & 7) + (((lane >> 3) & 1) << 3)) *
-                                 Layout<D>::kStride + ((lane >> 4) << 3);
-#pragma unroll
-  for (int kk = 0; kk < Layout<D>::kKSteps; ++kk) ldmatrix_x4(qf[kk], row + 16 * kk);
+  load_a_fragments<D>(qf, sm.q_tile);
 }
 
 // s[n] = Q K^T for the warp's 16 rows against keys 8 n .. 8 n + 7 of a staged K tile, summed
@@ -326,16 +382,16 @@ __device__ __forceinline__ bool tile_segments(const Smem& sm, const uint8_t* mb,
   return __syncthreads_or(any_real) != 0;
 }
 
-// Walks the kept key tiles through the double-buffered ring. The copies of a tile (K, and V with
-// kV) and its mask bytes are issued one tile ahead, so they are in flight while
-// body(j, k_tile, v_tile, real) computes on tile j, real being its real_bits. One barrier per
-// tile: a buffer is refilled only after every warp has passed the barrier that follows its last
-// read.
-template <int D, bool kV, typename Body>
+// Walks the kept tiles through the double-buffered ring. The copies of a tile (K, and V with kV;
+// in a dk/dv kernel Q and dO) and its mask bytes are issued one tile ahead, with whatever
+// extra(j, buf) copies beside them, so they are in flight while body(j, k_tile, v_tile, real)
+// computes on tile j, real being its real_bits. One barrier per tile: a buffer is refilled only
+// after every warp has passed the barrier that follows its last read.
+template <int D, bool kV, typename Body, typename Extra>
 __device__ __forceinline__ void walk_tiles(const Smem& sm, const TileFilter& filter,
                                            const bf16* kb, long long kts, const bf16* vb,
                                            long long vts, const uint8_t* mb, int t_len,
-                                           Body&& body) {
+                                           Body&& body, Extra&& extra) {
   constexpr int kTile = Layout<D>::kTile;
   bf16* const k_ring = sm.k_ring;
   bf16* const v_ring = sm.v_ring;
@@ -343,6 +399,7 @@ __device__ __forceinline__ void walk_tiles(const Smem& sm, const TileFilter& fil
   auto issue = [&](int j, int buf) {
     load_tile<D>(k_ring + buf * kTile, kb, kts, j * kRows, t_len);
     if (kV) load_tile<D>(v_ring + buf * kTile, vb, vts, j * kRows, t_len);
+    extra(j, buf);
     cp_async_commit();
   };
   __syncthreads();  // an earlier walk's reads of the ring are done
@@ -364,6 +421,14 @@ __device__ __forceinline__ void walk_tiles(const Smem& sm, const TileFilter& fil
   }
 }
 
+template <int D, bool kV, typename Body>
+__device__ __forceinline__ void walk_tiles(const Smem& sm, const TileFilter& filter,
+                                           const bf16* kb, long long kts, const bf16* vb,
+                                           long long vts, const uint8_t* mb, int t_len,
+                                           Body&& body) {
+  walk_tiles<D, kV>(sm, filter, kb, kts, vb, vts, mb, t_len, body, [](int, int) {});
+}
+
 // Writes the warp's output rows below T, row i times row_scale[i], as bf16 pairs through the
 // time stride ots.
 template <int D>
@@ -383,18 +448,24 @@ __device__ __forceinline__ void store_output(bf16* ob, long long ots, int q0, in
   }
 }
 
-// Launches kernel on the grid (ceil(T / 64), heads, batch) of kThreads-thread blocks with the
-// shared memory smem_bytes counts; returns cudaGetLastError().
-template <int D, typename... Params, typename... Args>
-cudaError_t launch_blocks(void (*kernel)(Params...), int batch, int heads, int t_len,
-                          cudaStream_t stream, Args... args) {
-  const int n_tiles = (t_len + kRows - 1) / kRows;
-  const int smem = smem_bytes<D>(n_tiles);
+// Launches kernel on the grid (ceil(T / 64), heads, batch) of kThreads-thread blocks with smem
+// bytes of dynamic shared memory; returns cudaGetLastError().
+template <typename... Params, typename... Args>
+cudaError_t launch_grid(void (*kernel)(Params...), int smem, int batch, int heads, int t_len,
+                        cudaStream_t stream, Args... args) {
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(n_tiles, heads, batch), kThreads, smem, stream>>>(args...);
+  kernel<<<dim3((t_len + kRows - 1) / kRows, heads, batch), kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// launch_grid with the shared memory of a forward (smem_bytes).
+template <int D, typename... Params, typename... Args>
+cudaError_t launch_blocks(void (*kernel)(Params...), int batch, int heads, int t_len,
+                          cudaStream_t stream, Args... args) {
+  return launch_grid(kernel, smem_bytes<D>((t_len + kRows - 1) / kRows), batch, heads, t_len,
+                     stream, args...);
 }
 
 }  // namespace some_mma

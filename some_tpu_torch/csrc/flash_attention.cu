@@ -9,17 +9,16 @@
 // product with v; sums are f32 and the output is in the input dtype. [T, T] is never stored.
 //
 // Bound: operations once T is long (4 * B * H * T^2 * D flops against 4 * B * H * T * D
-// elements moved). The inference kernel and the f32 training forward do their products as f32
-// FMAs on the CUDA cores, so they run far from that bound; f32 inputs stay in true f32 (no TF32).
-// The bf16 training forward runs on the tensor cores (below).
+// elements moved). In f32 both kernels do their products as f32 FMAs on the CUDA cores, so they
+// run far from that bound, in true f32 (no TF32). In bf16 both run on the tensor cores (below).
 //
-// Design: a block owns 64 queries of one (batch, head) and 128 threads. Q stays in shared
-// memory; the block walks the keys in tiles of 64, staging K (transposed) and V in shared
-// memory, and keeps the running max, the running sum and the output rows in f32 registers
-// (the online softmax). Each thread holds a 4 x 8 block of the score tile and a 4 x D/8 block of
-// the output, so each value read from shared memory feeds 4 or 8 FMAs. Keys past T (the ragged
-// last tile) score -inf and drop out; queries past T are computed and not stored. Inputs are
-// read through their strides, so q, k and v may be views into the projections' [B, T, H, D]
+// Design on the CUDA cores (f32): a block owns 64 queries of one (batch, head) and 128 threads.
+// Q stays in shared memory; the block walks the keys in tiles of 64, staging K (transposed) and V
+// in shared memory, and keeps the running max, the running sum and the output rows in f32
+// registers (the online softmax). Each thread holds a 4 x 8 block of the score tile and a 4 x D/8
+// block of the output, so each value read from shared memory feeds 4 or 8 FMAs. Keys past T (the
+// ragged last tile) score -inf and drop out; queries past T are computed and not stored. Inputs
+// are read through their strides, so q, k and v may be views into the projections' [B, T, H, D]
 // outputs.
 //
 // Training forward (some_flash_attention_fwd_stats): the same function plus the row statistics the
@@ -27,23 +26,23 @@
 // probabilities before they are rounded), as f32 [B, H, T, 2]. It makes two passes over the keys:
 // the first finds m and l, the second multiplies v with p = round(exp(score - m) / l), the
 // normalized probability rounded to the input dtype, exactly as the plain version rounds its
-// softmax. So in f32 the backward (flash_attention_bwd.cu) rebuilds bit for bit the P this kernel
-// multiplied with v (in bf16 see below). One log-sum-exp per row would not do: in a batch-padding
-// row m is -1e9 and -1e9 + log(T) rounds back to -1e9 in f32, which would turn the uniform 1/T into
-// 1. The second pass costs one more Q K^T product than the inference kernel; the inference path
-// does not pay it.
+// softmax. So the dk/dv kernel (flash_attention_bwd.cu) rebuilds bit for bit the P this kernel
+// multiplied with v. One log-sum-exp per row would not do: in a batch-padding row m is -1e9 and
+// -1e9 + log(T) rounds back to -1e9 in f32, which would turn the uniform 1/T into 1. The second
+// pass costs one more Q K^T product than the inference kernel; the inference path does not pay it.
 //
-// In bf16 the training forward is flash_fwd_stats_mma_kernel, on the tensor cores
-// (attention_mma.cuh): the same two passes and the same score arithmetic on Q K^T tiles from
-// mma.sync (exp on the special-function unit), and in pass 2 p = round(exp(score - m) * (1 / l))
-// packed in pairs is the bf16 A fragment of the P.V product: the rounding the semantics ask for is
-// the operand format the tensor core takes. It skips a key tile whose keys are all masked or past
-// T, but only in a batch row with a real key, where exp(-1e9 - m) is exactly 0; in an all-masked
-// row the masked keys carry the uniform average, so every tile is walked. The backward kernels
-// still rebuild Q K^T with CUDA-core FMAs, so in bf16 the P they rebuild equals this kernel's P to
-// rounding, not bit for bit (the two sum Q K^T in another order); in f32 both sides stay on the
-// CUDA cores and the bit-for-bit contract holds. It returns in bf16 once the backward kernels move
-// onto the same tile.
+// In bf16 both forwards run on the tensor cores (attention_mma.cuh): the inference forward is
+// flash_fwd_mma_kernel, the one pass of online softmax, the training forward
+// flash_fwd_stats_mma_kernel, the same two passes. Both take the score arithmetic above on Q K^T
+// tiles from mma.sync (masked_scores; exp on the special-function unit), and pack p rounded to
+// bf16 in pairs as the A fragment of the P.V product: the rounding the semantics ask for is the
+// operand format the tensor core takes. The inference forward rounds p = exp(score - m_running)
+// unnormalised and divides by l at the store, as the f32 kernel does; the training forward
+// rounds the normalized p. Both skip a key tile whose keys are all masked or past T, but only in
+// a batch row with a real key, where exp(-1e9 - m) is exactly 0; in an all-masked row the masked
+// keys carry the uniform average, so every tile is walked. The bf16 dk/dv kernel sums S^T = K Q^T
+// with the same products in the same k16 steps, so its P is the training forward's bit for bit;
+// the dq kernel rebuilds P with CUDA-core FMAs, to rounding.
 #include <type_traits>
 
 #include "attention_mma.cuh"
@@ -341,6 +340,122 @@ flash_fwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   }
 }
 
+// The scores of key tile j on the tensor cores (attention_mma.cuh), as flash_fwd_stats_kernel
+// forms them: s = Q K^T summed over d in k16 steps, then s * scale rounded once, masked keys
+// -1e9, keys past T -inf. real is the tile's real_bits. The dk/dv kernel (flash_attention_bwd.cu)
+// forms S^T with the same products, k16 steps and arithmetic, so its P is this P bit for bit.
+template <int D>
+__device__ __forceinline__ void masked_scores(float (&s)[8][4],
+                                              const uint32_t (&qf)[some_mma::Layout<D>::kKSteps][4],
+                                              const __nv_bfloat16* k_tile, int j, uint64_t real,
+                                              int t_len, float scale) {
+  namespace mma = some_mma;
+  mma::score_tile<D>(s, qf, k_tile);
+  if (real == ~0ull) {  // every key real: nothing to mask
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale);
+    return;
+  }
+  const uint32_t is_real = mma::thread_columns(real);
+  const uint32_t below_t = mma::thread_columns(mma::below_t_bits(j * mma::kRows, t_len));
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int bit = 2 * n + (e & 1);
+      s[n][e] = ((is_real >> bit) & 1u) ? __fmul_rn(s[n][e], scale)
+                                        : (((below_t >> bit) & 1u) ? kMaskedScore : -INFINITY);
+    }
+}
+
+// The walk over a row's key tiles of the bf16 forwards: the tiles with a real key; in a row with
+// none (a batch-padding row, whose masked keys carry the uniform average), every tile. Fills the
+// bitmaps; called by the whole block.
+__device__ __forceinline__ some_mma::TileFilter key_tile_filter(const some_mma::Smem& sm,
+                                                                const uint8_t* mb, int t_len) {
+  some_mma::TileFilter filter{nullptr, nullptr, false, true};
+  if (mb != nullptr && some_mma::tile_segments(sm, mb, t_len)) {
+    filter.seg0 = sm.seg0;
+    filter.seg1 = sm.seg1;
+  }
+  return filter;
+}
+
+// The bf16 inference forward on the tensor cores: flash_fwd_kernel's one pass of online softmax
+// on the tile of attention_mma.cuh. Per key tile, the row max m grows to m_new; the row's output
+// accumulators and l are scaled by alpha = exp(m - m_new); l adds the f32 p = exp(score - m_new)
+// before p is rounded; bf16(p), unnormalised, packed in pairs, is the A fragment of P.V. The
+// output is divided by l at the store. Key tiles are skipped as in the training forward.
+template <int D>
+__global__ void __launch_bounds__(some_mma::kThreads)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
+                     __nv_bfloat16* __restrict__ out, int t_len, Strides qs, Strides ks,
+                     Strides vs_, Strides os, float scale) {
+  namespace mma = some_mma;
+  using L = mma::Layout<D>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  const mma::Smem sm = mma::carve_smem<D>(mma_smem, t_len);
+  const int q0 = blockIdx.x * mma::kRows;
+  const uint8_t* mb = mask ? mask + static_cast<size_t>(blockIdx.z) * t_len : nullptr;
+
+  mma::stage_q<D>(sm, mma::head_slice(q, qs), qs.t, q0, t_len);
+  const mma::TileFilter filter = key_tile_filter(sm, mb, t_len);
+  uint32_t qf[L::kKSteps][4];
+  mma::load_q_fragments<D>(qf, sm);
+
+  // row i's scores are s[n][2 i] and s[n][2 i + 1]; register 2 h + i of a P fragment holds row
+  // i's pair of score tile 2 ks + h
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float o[L::kOutTiles][4] = {};
+  mma::walk_tiles<D, true>(
+      sm, filter, mma::head_slice(k, ks), ks.t, mma::head_slice(v, vs_), vs_.t, mb, t_len,
+      [&](int j, const bf16* k_tile, const bf16* v_tile, uint64_t real) {
+        float s[8][4];
+        masked_scores<D>(s, qf, k_tile, j, real, t_len, scale);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float tile_max = -INFINITY;
+#pragma unroll
+          for (int n = 0; n < 8; ++n) tile_max = fmaxf(tile_max, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
+          // finite: a walked tile has a key below T
+          const float m_new = fmaxf(m[i], mma::quad_max(tile_max));
+          const float alpha = mma::exp_(m[i] - m_new);  // 0 on the first tile
+          m[i] = m_new;
+          l[i] *= alpha;
+#pragma unroll
+          for (int n = 0; n < L::kOutTiles; ++n) {
+            o[n][2 * i] *= alpha;
+            o[n][2 * i + 1] *= alpha;
+          }
+        }
+#pragma unroll
+        for (int kstep = 0; kstep < 4; ++kstep) {
+          uint32_t pf[1][4];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const float* x = s[2 * kstep + hh] + 2 * i;
+              const float p0 = mma::exp_(__fsub_rn(x[0], m[i]));
+              const float p1 = mma::exp_(__fsub_rn(x[1], m[i]));
+              l[i] += p0;
+              l[i] += p1;
+              pf[0][2 * hh + i] = mma::pack_bf16(__floats2bfloat162_rn(p0, p1));
+            }
+          mma::pv_step<D, 1>(o, pf, v_tile, kstep);
+        }
+      });
+
+  float inv_l[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) inv_l[i] = 1.0f / mma::quad_sum(l[i]);
+  mma::store_output<D>(mma::head_slice(out, os), os.t, q0, t_len, o, inv_l);
+}
+
 // The bf16 training forward on the tensor cores: flash_fwd_stats_kernel's two passes and
 // arithmetic (see the note at the top) on the tile of attention_mma.cuh. Warp w owns query rows
 // 16 w .. 16 w + 15; a thread holds rows g and g + 8 (lane = 4 g + c) of each score and output
@@ -362,36 +477,9 @@ flash_fwd_stats_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloa
   const uint8_t* mb = mask ? mask + static_cast<size_t>(blockIdx.z) * t_len : nullptr;
 
   mma::stage_q<D>(sm, mma::head_slice(q, qs), qs.t, q0, t_len);
-  // walk the tiles with a real key; in a row with none, every tile
-  mma::TileFilter filter{nullptr, nullptr, false, true};
-  if (mb != nullptr && mma::tile_segments(sm, mb, t_len)) {
-    filter.seg0 = sm.seg0;
-    filter.seg1 = sm.seg1;
-  }
+  const mma::TileFilter filter = key_tile_filter(sm, mb, t_len);
   uint32_t qf[L::kKSteps][4];
   mma::load_q_fragments<D>(qf, sm);
-
-  // the scores of a tile: s * scale, masked keys -1e9, keys past T -inf
-  auto scores = [&](float (&s)[8][4], int j, const bf16* k_tile, uint64_t real) {
-    mma::score_tile<D>(s, qf, k_tile);
-    if (real == ~0ull) {  // every key real: nothing to mask
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale);
-      return;
-    }
-    const uint32_t is_real = mma::thread_columns(real);
-    const uint32_t below_t = mma::thread_columns(mma::below_t_bits(j * mma::kRows, t_len));
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int bit = 2 * n + (e & 1);
-        s[n][e] = ((is_real >> bit) & 1u) ? __fmul_rn(s[n][e], scale)
-                                          : (((below_t >> bit) & 1u) ? kMaskedScore : -INFINITY);
-      }
-  };
 
   // pass 1: the row max m and l = sum exp(score - m), online over the key tiles; row i's scores
   // are s[n][2 i] and s[n][2 i + 1]
@@ -400,7 +488,7 @@ flash_fwd_stats_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloa
       sm, filter, kb, ks.t, vb, vs_.t, mb, t_len,
       [&](int j, const bf16* k_tile, const bf16*, uint64_t real) {
         float s[8][4];
-        scores(s, j, k_tile, real);
+        masked_scores<D>(s, qf, k_tile, j, real, t_len, scale);
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           float tile_max = -INFINITY;
@@ -431,7 +519,7 @@ flash_fwd_stats_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloa
       sm, filter, kb, ks.t, vb, vs_.t, mb, t_len,
       [&](int j, const bf16* k_tile, const bf16* v_tile, uint64_t real) {
         float s[8][4];
-        scores(s, j, k_tile, real);
+        masked_scores<D>(s, qf, k_tile, j, real, t_len, scale);
 #pragma unroll
         for (int kstep = 0; kstep < 4; ++kstep) {
           uint32_t pf[1][4];
@@ -464,32 +552,37 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
                    float* stats, int batch, int heads, int t_len, Strides qs, Strides ks,
                    Strides vs_, Strides os, float scale, cudaStream_t stream) {
-  const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
-  const dim3 grid((t_len + kBQ - 1) / kBQ, heads, batch);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   const uint8_t* mp = static_cast<const uint8_t*>(mask);
   T* op = static_cast<T*>(out);
-  cudaError_t err;
-  if (stats == nullptr) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(qp, kp, vp, mp, op, t_len, qs, ks,
-                                                            vs_, os, scale);
-  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    // the bf16 training forward runs on the tensor cores; f32 stays on the CUDA cores (true f32)
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // bf16 runs on the tensor cores; f32 stays on the CUDA cores (true f32)
+    if (stats == nullptr)
+      return some_mma::launch_blocks<D>(flash_fwd_mma_kernel<D>, batch, heads, t_len, stream, qp,
+                                        kp, vp, mp, op, t_len, qs, ks, vs_, os, scale);
     return some_mma::launch_blocks<D>(flash_fwd_stats_mma_kernel<D>, batch, heads, t_len, stream,
                                       qp, kp, vp, mp, op, stats, t_len, qs, ks, vs_, os, scale);
   } else {
-    err = cudaFuncSetAttribute(flash_fwd_stats_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    flash_fwd_stats_kernel<T, D><<<grid, kThreads, smem, stream>>>(qp, kp, vp, mp, op, stats,
-                                                                  t_len, qs, ks, vs_, os, scale);
+    const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
+    const dim3 grid((t_len + kBQ - 1) / kBQ, heads, batch);
+    cudaError_t err;
+    if (stats == nullptr) {
+      err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(qp, kp, vp, mp, op, t_len, qs, ks,
+                                                              vs_, os, scale);
+    } else {
+      err = cudaFuncSetAttribute(flash_fwd_stats_kernel<T, D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      flash_fwd_stats_kernel<T, D><<<grid, kThreads, smem, stream>>>(qp, kp, vp, mp, op, stats,
+                                                                    t_len, qs, ks, vs_, os, scale);
+    }
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <typename T>

@@ -5,10 +5,9 @@
 // multiplied with v: s = sum_d q[d] * k[d] as f32 fused multiply-adds in ascending d from 0,
 // score = s * scale rounded once (no contraction with what follows), masked keys -1e9, keys past
 // T -inf, and p = exp(score - m) * (1 / l) with the row statistics (m, l) the forward stored.
-// That holds in f32. In bf16 the training forward runs on the tensor cores (attention_mma.cuh),
-// which sum Q K^T in another order, while the backward kernels still rebuild it with these FMAs:
-// the P they rebuild equals the forward's to rounding, not bit for bit, until the backward
-// kernels move onto the same tile.
+// That holds in f32. In bf16 the training forward and the dk/dv kernel run on the tensor cores
+// (attention_mma.cuh) and agree bit for bit; the dq kernel still rebuilds Q K^T with these FMAs,
+// so in bf16 its P equals the forward's to rounding, not bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>

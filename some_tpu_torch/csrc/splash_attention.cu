@@ -251,13 +251,7 @@ splash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
               const float p1 = mma::exp_(__fsub_rn(x[1], m[i]));
               l[i] += p0;
               l[i] += p1;
-              // hi: p cut to its bf16 bits (the high halves, packed by one byte permute); lo:
-              // the exact rest p - hi, rounded to bf16
-              const uint32_t u0 = __float_as_uint(p0), u1 = __float_as_uint(p1);
-              pf[0][2 * hh + i] = __byte_perm(u0, u1, 0x7632);
-              pf[1][2 * hh + i] = mma::pack_bf16(
-                  __floats2bfloat162_rn(p0 - __uint_as_float(u0 & 0xffff0000u),
-                                        p1 - __uint_as_float(u1 & 0xffff0000u)));
+              mma::split_bf16(p0, p1, pf[0][2 * hh + i], pf[1][2 * hh + i]);
             }
           mma::pv_step<D, 2>(o, pf, v_tile, kstep);
         }

@@ -27,16 +27,18 @@ call whose q, k or v needs a gradient goes through
 :class:`FlashAttentionFn` / :class:`SplashAttentionFn`: the training forward
 also stores the row statistics (``*_fwd_res.launches``), and the backward
 runs the dk/dv and dq kernels (``*_bwd_dkv.launches``, ``*_bwd_dq.launches``)
-after ``rowsum(dO * O)`` in plain PyTorch, as JAX computes it in XLA. The
+after ``rowsum(dO * O)`` in plain PyTorch, as JAX computes it in XLA (K2's
+dq kernel corrects it to rowsum(P dP) and runs first). The
 gradients are written in ``[B, T, H, D]`` storage viewed as ``[B, H, T, D]``,
 the layout of the projections q, k and v are views of, so the transposes
 back cost nothing; the concatenation of dk and dv into the fused kv
 projection's gradient is the one copy, as with any split.
 
-In bf16 the training forward and the splash forward run on the tensor cores
-(``csrc/attention_mma.cuh``), which copy 16-byte rows with ``cp.async``:
-their wrappers raise on a bf16 row that is not 16-byte aligned. f32 runs on
-the CUDA cores in true f32.
+In bf16 K2's inference and training forwards, K2's dk/dv kernel and the
+splash forward run on the tensor cores (``csrc/attention_mma.cuh``), which
+copy 16-byte rows with ``cp.async``: their wrappers raise on a bf16 row that
+is not 16-byte aligned. f32 runs on the CUDA cores in true f32, and so do
+the dq kernels and K4's dk/dv in both dtypes.
 
 The two JAX paths differ on padded frames; PERF.md says where that reaches a
 training loss.
@@ -102,11 +104,11 @@ def _bhtd_like(q: torch.Tensor) -> torch.Tensor:
 
 
 def _check_rows_aligned(what: str, *tensors) -> None:
-    """The bf16 training forward and splash forward run on the tensor cores
-    and copy rows of 16 bytes with ``cp.async``: every row of q, k, v and
-    the output must start on a 16-byte boundary (data pointers and the
-    batch, head and time strides). The model's [B, H, T, D] views of
-    [B, T, H, D] storage meet this; there is no fallback to another kernel."""
+    """The bf16 kernels on the tensor cores copy rows of 16 bytes with
+    ``cp.async``: every row they copy must start on a 16-byte boundary (data
+    pointers and the batch, head and time strides). The model's [B, H, T, D]
+    views of [B, T, H, D] storage meet this; there is no fallback to another
+    kernel."""
     for t in tensors:
         if t.dtype == torch.bfloat16 and (
                 t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in t.stride()[:3])):
@@ -150,6 +152,7 @@ def _launch(q, k, v, mask, scale):
     B, H, T, D = q.shape
     q, k, v = (_last_contiguous(t) for t in (q, k, v))
     out = _bhtd_like(q)
+    _check_rows_aligned("flash_attention", q, k, v, out)
     err = _fn("some_flash_attention_fwd", 5, 4)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(mask), out.data_ptr(),
         B, H, T, D, _strides(q), _strides(k), _strides(v), _strides(out),
@@ -178,9 +181,35 @@ def flash_attention_fwd_res(q, k, v, mask, scale):
     return out, stats
 
 
+def flash_attention_bwd_dkv_plain(q, k, v, dout, stats, delta, mask, scale):
+    """dk, dv ``[B, H, T, D]`` with the dk/dv kernel's rounding points, from
+    the forward's row statistics ``stats`` (m, l) ``[B, H, T, 2]`` and
+    ``delta = rowsum(dO * O)`` ``[B, H, T]``, both f32: P rebuilt as
+    exp(score - m) * (1 / l), dV = round(P)^T dO, dP = dO V^T in f32,
+    dS = P (dP - delta) and 0 at a masked key, then dK = (dS * scale)^T Q.
+    In bf16 the kernel takes dS * scale as hi + lo, two bf16 operands (hi its
+    value cut to bf16, lo the rest rounded), where JAX's kernel rounds it to
+    bf16 once; this function does the same."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+    p = torch.exp(s - stats[..., :1]) * (1.0 / stats[..., 1:])
+    dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), dout.float())
+    ds = p * (torch.matmul(dout.float(), v.float().transpose(-1, -2)) - delta[..., None])
+    if mask is not None:
+        ds = ds.masked_fill(~mask[:, None, None, :], 0.0)
+    ds = ds * scale
+    if q.dtype == torch.bfloat16:
+        hi = (ds.view(torch.int32) & -65536).view(torch.float32)
+        ds = hi + (ds - hi).to(q.dtype).float()
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
 def flash_attention_bwd_dkv(q, k, v, dout, stats, delta, mask, scale):
     """dk, dv from the dk/dv kernel."""
     _build.refuse_grad("flash_attention_bwd_dkv", q, k, v, dout)
+    _check_rows_aligned("flash_attention_bwd_dkv", q, k, v, dout)
     B, H, T, D = q.shape
     dk, dv = _bhtd_like(q), _bhtd_like(q)
     err = _fn("some_flash_attention_bwd_dkv", 9, 6)(
@@ -194,28 +223,34 @@ def flash_attention_bwd_dkv(q, k, v, dout, stats, delta, mask, scale):
 
 
 def flash_attention_bwd_dq(q, k, v, dout, stats, delta, mask, scale):
-    """dq from the dq kernel."""
+    """dq from the dq kernel, and the row sums of P dP it found ``[B, H, T]``
+    f32: ``delta`` corrected by the sum of dS = P (dP - delta) over the real
+    keys, which the kernel also takes out of dq."""
     _build.refuse_grad("flash_attention_bwd_dq", q, k, v, dout)
     B, H, T, D = q.shape
     dq = _bhtd_like(q)
-    err = _fn("some_flash_attention_bwd_dq", 8, 5)(
+    delta_out = torch.empty_like(delta)
+    err = _fn("some_flash_attention_bwd_dq", 9, 5)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
-        delta.data_ptr(), _mask_ptr(mask), dq.data_ptr(), B, H, T, D,
+        delta.data_ptr(), _mask_ptr(mask), dq.data_ptr(), delta_out.data_ptr(), B, H, T, D,
         _strides(q), _strides(k), _strides(v), _strides(dout), _strides(dq),
         float(scale), _DTYPE_CODES[q.dtype], _stream(q))
     _build.check(err, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return dq, delta_out
 
 
 def flash_attention_backward(q, k, v, out, dout, stats, mask, scale):
     """dq, dk, dv on the card from the forward's inputs, output and
-    statistics: ``delta = rowsum(dO * O)`` in f32, then the two kernels."""
+    statistics: ``delta = rowsum(dO * O)`` in f32, as JAX takes it, then the
+    dq kernel, which corrects delta to the rowsum of P dP (O is rounded to
+    the input dtype; ``csrc/flash_attention_bwd.cu``), then the dk/dv kernel
+    on the corrected delta."""
     _check(q, k, v, mask)
     q, k, v, dout = (_last_contiguous(t) for t in (q, k, v, dout))
     delta = (dout.float() * out.float()).sum(-1).contiguous()
+    dq, delta = flash_attention_bwd_dq(q, k, v, dout, stats, delta, mask, scale)
     dk, dv = flash_attention_bwd_dkv(q, k, v, dout, stats, delta, mask, scale)
-    dq = flash_attention_bwd_dq(q, k, v, dout, stats, delta, mask, scale)
     return dq, dk, dv
 
 

@@ -13,7 +13,8 @@ import torch
 
 from some_tpu.ops.attention import _xla_attention
 from some_tpu_torch.ops.attention import (
-    attention_bhtd, attention_plain, flash_attention, splash_attention, splash_attention_plain,
+    NEG_INF, attention_bhtd, attention_plain, flash_attention, flash_attention_bwd_dkv_plain,
+    splash_attention, splash_attention_plain,
 )
 
 
@@ -58,6 +59,39 @@ def test_plain_without_mask_and_in_bf16():
     assert got.dtype == torch.bfloat16
     # bf16 output: the two frameworks may round the f32 result differently
     np.testing.assert_allclose(got.transpose(1, 2).float().numpy(), want, atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("B,H,T,D", [(3, 2, 37, 32), (2, 4, 130, 64), (3, 1, 77, 64)])
+def test_plain_dkv_matches_jax_vjp(B, H, T, D):
+    """The dk/dv kernel's plain version, from the row statistics (m, l) of a
+    plain f32 forward and delta = rowsum(dO * O), against ``jax.vjp`` of
+    ``_xla_attention`` in f32: within 1e-5 x the RMS of JAX's gradient (the
+    two take delta from O and from P dP, and sum in other orders)."""
+    import jax
+
+    q, k, v, mask = _inputs(B, H, T, D, seed=T + 7)
+    do = np.random.default_rng(T + 8).standard_normal(q.shape).astype(np.float32)
+    scale = D ** -0.5
+    _, vjp = jax.vjp(lambda q, k, v: _xla_attention(q, k, v, jnp.asarray(mask), scale),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    _, want_dk, want_dv = (np.asarray(g) for g in vjp(jnp.asarray(do)))
+
+    tq, tk, tv, tdo = (_bhtd(a) for a in (q, k, v, do))
+    tmask = torch.from_numpy(mask)
+    s = (torch.matmul(tq, tk.transpose(-1, -2)) * scale).masked_fill(
+        ~tmask[:, None, None, :], NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    stats = torch.cat([m, torch.exp(s - m).sum(dim=-1, keepdim=True)], dim=-1)
+    delta = (tdo * attention_plain(tq, tk, tv, tmask, scale)).sum(-1)
+    dk, dv = flash_attention_bwd_dkv_plain(tq, tk, tv, tdo, stats, delta, tmask, scale)
+    for name, got, want in (("dk", dk, want_dk), ("dv", dv, want_dv)):
+        got = got.transpose(1, 2).numpy()
+        tol = 1e-5 * np.sqrt(np.mean(want ** 2))
+        print(f"parity flash dk/dv plain f32 {name}: max|d| / RMS "
+              f"{np.abs(got - want).max() / np.sqrt(np.mean(want ** 2)):.3g}")
+        np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+    # the batch-padding row and a real row's padded keys get no dk
+    assert not dk[-1].any() and not dk[0, :, T * 2 // 3:].any()
 
 
 def test_impl_dispatch():

@@ -14,7 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import fused_ffn_tolerance, grad_tolerance, splash_forward_tolerance
+from chip_smoke import (
+    BF16_PLAIN_HELD, fused_ffn_tolerance, grad_tolerance, splash_forward_tolerance,
+)
 from some_tpu_torch.ops import attention as A
 from some_tpu_torch.ops import depthwise as W
 from some_tpu_torch.ops import fused_ffn as K3
@@ -105,22 +107,26 @@ GRID = [(3, 2, T, D) for T in (77, 130, 200, 1000) for D in (32, 64)] + [(2, 4, 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = pytest.mark.parametrize("D", [32, 64])
 
-# At two points of the grid the bf16 K2 dk/dv kernel misses the 0.02 RMS
-# bound on dk against the plain autograd, with the tensor-core training
-# forward and with the CUDA-core one it replaced alike: a fault of the
-# backward against its bound (ROADMAP.md queue 3). Strict, so the suite
-# fails once the kernel meets it.
-K2_DK_GAP = pytest.mark.xfail(strict=True, raises=AssertionError,
-                              reason="bf16 K2 dk misses its 0.02 RMS bound (ROADMAP.md queue 3)")
-K2_BACKWARD = [pytest.param(*point, dtype, id="-".join(map(str, point)) + f"-{str(dtype)[6:]}",
-                            marks=K2_DK_GAP if dtype == torch.bfloat16
-                            and point in ((3, 2, 77, 64), (3, 2, 200, 64)) else ())
+K2_BACKWARD = [pytest.param(*point, dtype, id="-".join(map(str, point)) + f"-{str(dtype)[6:]}")
                for point in GRID for dtype in DTYPES]
+
+
+def _ratio(got, want, rel):
+    """max |got - want| / grad_tolerance(want, rel)."""
+    tol = grad_tolerance(torch, want, rel, got.dtype)
+    return float(((got.float() - want.float()).abs() / tol).max())
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,H,T,D,dtype", K2_BACKWARD)
 def test_attention_backward_matches_plain_autograd(cuda, B, H, T, D, dtype):
+    """In bf16 the kernels' out, dq, dk and dv are held against the f32
+    gradient of the same bf16 inputs (the autograd of the plain version on
+    q, k, v, dO cast to f32), and all but dk against the plain bf16 autograd
+    too (BF16_PLAIN_HELD): that autograd rounds dP = dO V^T to bf16 before
+    dS = P (dP - delta) cancels, where the kernels keep dP in f32 as JAX's
+    kernel does, and misses the f32 gradient's bound on dk itself. Both
+    bounds are 2 ulp of |want| + 0.02 RMS(want)."""
     q, k, v, do, mask = _attention_inputs(B, H, T, D, dtype, cuda, seed=T)
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
     scale = D ** -0.5
@@ -133,11 +139,29 @@ def test_attention_backward_matches_plain_autograd(cuda, B, H, T, D, dtype):
     assert (A.flash_attention_fwd_res.launches, A.flash_attention_bwd_dkv.launches,
             A.flash_attention_bwd_dq.launches, A.flash_attention.launches) == (
         before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+    assert all(torch.isfinite(t.float()).all() for t in (out, *grads))
     want_out = A.attention_plain(q, k, v, mask, scale)
     wants = torch.autograd.grad(want_out, (q, k, v), do)
-    _assert_close(out, want_out, 0.02 if dtype == torch.bfloat16 else 2e-5, "out")
-    for name, got, want in zip("qkv", grads, wants):
-        _assert_close(got, want, 0.02 if dtype == torch.bfloat16 else 2e-5, f"d{name}")
+    bf16 = dtype == torch.bfloat16
+    rel = 0.02 if bf16 else 2e-5
+    ratios = {"plain": [_ratio(out, want_out, rel)]
+              + [_ratio(g, w, rel) for g, w in zip(grads, wants)]}
+    names = ("out", "dq", "dk", "dv")
+    held = {"plain": names if not bf16 else BF16_PLAIN_HELD}
+    if bf16:
+        leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        want32 = A.attention_plain(*leaves, mask, scale)
+        wants32 = torch.autograd.grad(want32, leaves, do.float())
+        ratios["f32"] = [_ratio(out, want32, rel)] + [_ratio(g, w, rel)
+                                                     for g, w in zip(grads, wants32)]
+        ratios["plain bf16 vs f32"] = [_ratio(want_out, want32, rel)] + [
+            _ratio(w, w32, rel) for w, w32 in zip(wants, wants32)]
+        held["f32"] = names
+    print(f"K2 backward {(B, H, T, D)} {str(dtype)[6:]} |d|/tol (out, dq, dk, dv): "
+          + "; ".join(f"{ref} {[round(r, 4) for r in rs]}" for ref, rs in ratios.items()))
+    for ref, which in held.items():
+        for name in which:
+            assert ratios[ref][names.index(name)] <= 1.0, (ref, name, ratios[ref])
     empty = ~mask.any(dim=1)
     # the batch-padding row: dq and dk exactly 0, dv = P^T dO with P uniform
     assert torch.equal(grads[0][empty], torch.zeros_like(grads[0][empty]))
@@ -148,6 +172,102 @@ def test_attention_backward_matches_plain_autograd(cuda, B, H, T, D, dtype):
     # no atomics: a second run gives the same bits
     again = torch.autograd.grad(A.flash_attention(q, k, v, mask, scale), (q, k, v), do)
     assert all(torch.equal(a, b) for a, b in zip(again, grads))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,D", [(77, 64), (200, 64), (77, 32)])
+def test_bf16_backward_meets_the_f32_bound_over_many_draws(cuda, T, D):
+    """One draw of the grid shows little of a tail: dq once passed every grid
+    point and missed on chip_smoke's own draw at (3, 2, 77, 64). Here 300
+    draws a shape, made as chip_smoke makes them (a CUDA generator, [B, T, H,
+    D] storage, keys from 0.7 T masked in row 0, row 2 all masked), hold the
+    bf16 dq and dk within 2 ulp + 0.02 RMS of the f32 gradient of the same
+    bf16 inputs, and out and dv within the same bound of the plain bf16
+    autograd: those two take round(P), the P the forward multiplied with V,
+    as that autograd and JAX's kernel do, and that rounding alone takes dv
+    past the f32 bound on some draws, the plain bf16 autograd's with it.
+    Prints the largest |d|/tol against f32 of the kernels' and of the plain
+    bf16 autograd's results, and how many draws pass 1."""
+    B, H, scale, draws = 3, 2, D ** -0.5, 300
+    names = ("out", "dq", "dk", "dv")
+    kernel, plain, vs_plain = (torch.zeros(draws, 4) for _ in range(3))
+    for i in range(draws):
+        gen = torch.Generator(device=cuda).manual_seed(i)
+        q, k, v, do = (torch.randn((B, T, H, D), generator=gen, device=cuda)
+                       .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
+        mask = torch.ones((B, T), dtype=torch.bool, device=cuda)
+        mask[0, int(T * 0.7):] = False
+        mask[B - 1] = False
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        results = []
+        for fn in (A.flash_attention, A.attention_plain):
+            out = fn(*leaves, mask, scale)
+            results.append((out, *torch.autograd.grad(out, leaves, do)))
+        leaves32 = [t.detach().float().requires_grad_() for t in leaves]
+        want32 = A.attention_plain(*leaves32, mask, scale)
+        wants = (want32, *torch.autograd.grad(want32, leaves32, do.float()))
+        for row, got in zip((kernel, plain), results):
+            row[i] = torch.tensor([_ratio(g, w, 0.02) for g, w in zip(got, wants)])
+        vs_plain[i] = torch.tensor([_ratio(g, w, 0.02) for g, w in zip(*results)])
+    print(f"K2 bf16 backward (3, 2, {T}, {D}) vs f32 over {draws} draws: " + "; ".join(
+        f"{n} kernel max {kernel[:, j].max():.4f} ({int((kernel[:, j] > 1).sum())} past 1), "
+        f"plain bf16 max {plain[:, j].max():.4f} ({int((plain[:, j] > 1).sum())} past 1)"
+        for j, n in enumerate(names)))
+    print(f"  kernel vs plain bf16: out max {vs_plain[:, 0].max():.4f}, "
+          f"dv max {vs_plain[:, 3].max():.4f}")
+    held = torch.stack([vs_plain[:, 0], kernel[:, 1], kernel[:, 2], vs_plain[:, 3]], dim=1)
+    assert float(held.max()) <= 1.0, {n: float(held[:, j].max()) for j, n in enumerate(names)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,T,D,dtype", K2_BACKWARD)
+def test_dq_kernel_returns_the_rowsum_of_p_dp(cuda, B, H, T, D, dtype):
+    """The dq kernel's second output is delta = rowsum(P dP) over the real
+    keys, in f32, whatever delta it was given: here rowsum(dO * O) with the
+    forward's O, and the same plus 1 in the all-masked row, which has no real
+    key and keeps what it was given. Against the rowsum in f64 of the plain
+    P and dP: within 1e-5 of that rowsum's RMS (f32 sums over T keys)."""
+    q, k, v, do, mask = _attention_inputs(B, H, T, D, dtype, cuda, seed=T + 5)
+    scale = D ** -0.5
+    out, stats = A.flash_attention_fwd_res(q, k, v, mask, scale)
+    given = (do.float() * out.float()).sum(-1)
+    empty = ~mask.any(dim=1)
+    given[empty] += 1.0
+    _, delta = A.flash_attention_bwd_dq(q, k, v, do, stats, given.contiguous(), mask, scale)
+    torch.cuda.synchronize()
+    s = (q.double() @ k.double().transpose(-1, -2)) * scale
+    p = torch.softmax(s.masked_fill(~mask[:, None, None, :], float("-inf")), dim=-1)
+    want = (p * (do.double() @ v.double().transpose(-1, -2))).sum(-1)
+    real = ~empty
+    err = float((delta[real].double() - want[real]).abs().max())
+    print(f"K2 dq's delta {(B, H, T, D)} {str(dtype)[6:]}: max |d| / RMS "
+          f"{err / float(want[real].pow(2).mean().sqrt()):.3g}")
+    assert err <= 1e-5 * float(want[real].pow(2).mean().sqrt())
+    assert torch.equal(delta[empty], given[empty])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,T,D,dtype", K2_BACKWARD)
+def test_dkv_kernel_matches_its_plain_version(cuda, B, H, T, D, dtype):
+    """The dk/dv kernel against flash_attention_bwd_dkv_plain, which rounds
+    where the kernel rounds (round(P) for dV, dS * scale as hi + lo before
+    dK), on the training forward's statistics: 2 ulp of |want| + 0.002
+    RMS(want) in bf16, ten times tighter than the bound against the
+    autograd. What is left is f32 sums in another order, exp on the
+    special-function unit (about 2 f32 ulp), and the rare P that lands on
+    the other side of a bf16 rounding (one ulp of one term of a sum over T
+    queries). f32: 2e-5 RMS."""
+    q, k, v, do, mask = _attention_inputs(B, H, T, D, dtype, cuda, seed=T + 3)
+    scale = D ** -0.5
+    out, stats = A.flash_attention_fwd_res(q, k, v, mask, scale)
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    got = A.flash_attention_bwd_dkv(q, k, v, do, stats, delta, mask, scale)
+    want = A.flash_attention_bwd_dkv_plain(q, k, v, do, stats, delta, mask, scale)
+    torch.cuda.synchronize()
+    rel = 0.002 if dtype == torch.bfloat16 else 2e-5
+    ratios = [_ratio(g, w, rel) for g, w in zip(got, want)]
+    print(f"K2 dk/dv kernel vs plain {(B, H, T, D)} {str(dtype)[6:]} |d|/tol (dk, dv): {ratios}")
+    assert max(ratios) <= 1.0, ratios
 
 
 @pytest.mark.gpu
@@ -234,6 +354,62 @@ def test_flash_fwd_res_skips_masked_tiles_bit_for_bit(cuda, D):
 
 @pytest.mark.gpu
 @HEAD_DIMS
+def test_flash_inference_and_dkv_skip_masked_tiles_bit_for_bit(cuda, D):
+    """Row 0's real keys end at a 64-key tile edge. The bf16 inference forward
+    skips the masked key tiles after it for row 0's queries, and the dk/dv
+    kernel's blocks of those keys write dk = dv = 0 and return: row 0's real
+    rows of the output, and of dk and dv, equal bit for bit the same calls on
+    the inputs cut at that length. dO is 0 at row 0's padded queries, so in
+    the full call they add exact zeros to the real keys' dk and dv."""
+    q, k, v, mask = _cut_inputs(D, cuda)
+    L, scale = 128, D ** -0.5
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(D),
+                     device=cuda).to(torch.bfloat16).transpose(1, 2).contiguous().transpose(1, 2)
+    do[0, :, L:] = 0
+    cut = lambda t: t[:, :, :L]
+    calls = {}
+    for name, args in (("full", (q, k, v, do, mask)),
+                       ("cut", (cut(q), cut(k), cut(v), cut(do), mask[:, :L].contiguous()))):
+        with torch.no_grad():
+            inference = A.flash_attention(*args[:3], args[4], scale)
+        out, stats = A.flash_attention_fwd_res(*args[:3], args[4], scale)
+        delta = (args[3].float() * out.float()).sum(-1).contiguous()
+        calls[name] = (inference, *A.flash_attention_bwd_dkv(*args[:4], stats, delta, args[4],
+                                                             scale))
+    torch.cuda.synchronize()
+    for full, short in zip(calls["full"], calls["cut"]):
+        assert torch.equal(full[0, :, :L], short[0])
+    for grad in calls["full"][1:]:
+        assert not grad[0, :, L:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,D", [(64, 64), (50, 64), (32, 32)])
+def test_dkv_rebuilds_the_forwards_p_bit_for_bit(cuda, T, D):
+    """With V the identity the bf16 training forward's output is the P it
+    multiplied with V: out[q, j] = round(P[q, j]) for j < T. With dO the
+    identity the dk/dv kernel's dV is the P it rebuilt: dV[j, q] =
+    round(P[q, j]). The two must agree bit for bit, on real keys, masked keys
+    (P = 0) and the all-masked row (P uniform): both kernels sum Q K^T on the
+    tensor cores over the same k16 steps and take exp(score - m) * (1 / l)
+    with the same arithmetic."""
+    B, H = 3, 2
+    q, k, _, _, mask = _attention_inputs(B, H, T, D, torch.bfloat16, cuda, seed=T + D)
+    mask[0] = True
+    mask[0, T * 4 // 5:] = False
+    eye = torch.eye(T, D, dtype=torch.bfloat16, device=cuda).expand(B, H, T, D).contiguous()
+    out, stats = A.flash_attention_fwd_res(q, k, eye, mask, D ** -0.5)
+    delta = torch.zeros((B, H, T), dtype=torch.float32, device=cuda)
+    _, dv = A.flash_attention_bwd_dkv(q, k, eye, eye, stats, delta, mask, D ** -0.5)
+    torch.cuda.synchronize()
+    p_forward = out[..., :T]
+    p_backward = dv[..., :T].transpose(-1, -2)
+    assert p_forward.abs().sum() > 0 and torch.equal(p_backward, p_forward)
+    assert not p_forward[0, :, :, T * 4 // 5:].any()   # masked keys of a real row
+
+
+@pytest.mark.gpu
+@HEAD_DIMS
 def test_splash_fwd_skips_other_segment_tiles_bit_for_bit(cuda, D):
     """The key tiles past row 0's real length hold only padding keys, which
     no real query attends: the bf16 splash forward skips them for the real
@@ -293,20 +469,36 @@ def _kernel_names(fn):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_forward_kernels_route_by_dtype(cuda, dtype):
     """bf16 inputs reach the tensor-core kernels and nothing else; f32 inputs
-    the CUDA-core kernels (true f32)."""
-    q, k, v, _, mask = _attention_inputs(2, 2, 130, 64, dtype, cuda, seed=9)
+    the CUDA-core kernels (true f32): K2's inference and training forwards,
+    K2's dk/dv kernel and K4's forward."""
+    q, k, v, do, mask = _attention_inputs(2, 2, 130, 64, dtype, cuda, seed=9)
     bf16 = dtype == torch.bfloat16
-    counts = A.flash_attention_fwd_res.launches, A.splash_attention_fwd_res.launches
-    flash = [n for n in _kernel_names(lambda: A.flash_attention_fwd_res(q, k, v, mask, 0.125))
-             if "flash_fwd" in n]
-    splash = [n for n in _kernel_names(lambda: A.splash_attention_fwd_res(q, k, v, mask))
-              if "splash_fwd" in n]
-    assert (A.flash_attention_fwd_res.launches, A.splash_attention_fwd_res.launches) == (
-        counts[0] + 1, counts[1] + 1)
-    assert len(flash) == 1 and len(splash) == 1, (flash, splash)
-    assert ("flash_fwd_stats_mma_kernel" in flash[0]) == bf16, flash
-    assert "flash_fwd_stats" in flash[0], flash
-    assert ("splash_fwd_mma_kernel" in splash[0]) == bf16, splash
+    counts = (A.flash_attention.launches, A.flash_attention_fwd_res.launches,
+              A.flash_attention_bwd_dkv.launches, A.splash_attention_fwd_res.launches)
+
+    def only(fn, key):
+        names = [n for n in _kernel_names(fn) if key in n]
+        assert len(names) == 1, names
+        return names[0]
+
+    with torch.no_grad():
+        inference = only(lambda: A.flash_attention(q, k, v, mask, 0.125), "flash_fwd")
+    flash = only(lambda: A.flash_attention_fwd_res(q, k, v, mask, 0.125), "flash_fwd")
+    out, stats = A.flash_attention_fwd_res(q, k, v, mask, 0.125)
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    dkv = only(lambda: A.flash_attention_bwd_dkv(q, k, v, do, stats, delta, mask, 0.125),
+               "flash_bwd")
+    splash = only(lambda: A.splash_attention_fwd_res(q, k, v, mask), "splash_fwd")
+    assert (A.flash_attention.launches, A.flash_attention_fwd_res.launches,
+            A.flash_attention_bwd_dkv.launches, A.splash_attention_fwd_res.launches) == (
+        counts[0] + 1, counts[1] + 2, counts[2] + 1, counts[3] + 1)
+    assert ("flash_fwd_mma_kernel" in inference) == bf16, inference
+    assert ("flash_fwd_kernel" in inference) == (not bf16), inference
+    assert ("flash_fwd_stats_mma_kernel" in flash) == bf16, flash
+    assert "flash_fwd_stats" in flash, flash
+    assert ("flash_bwd_dkv_mma_kernel" in dkv) == bf16, dkv
+    assert "flash_bwd_dkv" in dkv, dkv
+    assert ("splash_fwd_mma_kernel" in splash) == bf16, splash
 
 
 def test_bf16_forward_refuses_misaligned_rows():
@@ -319,6 +511,8 @@ def test_bf16_forward_refuses_misaligned_rows():
     for bad in (shifted, wide):
         with pytest.raises(ValueError, match="16-byte"):
             A.flash_attention_fwd_res(bad, ok, ok, None, 0.1)
+        with torch.no_grad(), pytest.raises(ValueError, match="16-byte"):
+            A._launch(ok, ok, bad, None, 0.1)
         with pytest.raises(ValueError, match="16-byte"):
             A.splash_attention_fwd_res(ok, ok, bad, None)
         with torch.no_grad(), pytest.raises(ValueError, match="16-byte"):
