@@ -79,8 +79,11 @@ TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_mma_kernel", "flash_attent
                        ("flash_attention", "flash_fwd_stats_mma_kernel", "flash_attention_fwd_res"),
                        ("flash_attention_bwd", "flash_bwd_dkv_mma_kernel",
                         "flash_attention_bwd_dkv"),
+                       ("flash_attention_bwd", "flash_bwd_dq_mma_kernel", "flash_attention_bwd_dq"),
                        ("splash_attention", "splash_fwd_mma_kernel", "splash_attention"),
-                       ("splash_attention", "splash_fwd_mma_kernel", "splash_attention_fwd_res"))
+                       ("splash_attention", "splash_fwd_mma_kernel", "splash_attention_fwd_res"),
+                       ("splash_attention_bwd", "splash_bwd_dkv_mma_kernel",
+                        "splash_attention_bwd_dkv"))
 
 
 def hmma_counts(libs, nvcc: str):
@@ -100,6 +103,19 @@ def hmma_counts(libs, nvcc: str):
         if not found or min(found.values()) == 0:
             raise AssertionError(f"{kernel}: no HMMA instruction in its SASS ({found})")
     return counts
+
+
+def kernel_registers(report: str):
+    """Registers of each kernel variant in an ``nvcc -Xptxas -v`` report,
+    keyed by mangled name."""
+    regs, name = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "registers" in line and name is not None:
+            regs[name] = int(line.split("Used ")[1].split()[0])
+            name = None
+    return regs
 
 
 def bf16_ulp(torch, ref):
@@ -481,16 +497,18 @@ def reset_counts():
         fn.launches = 0
 
 
-def tol_ratio(torch, got, want, rel):
-    """max |got - want| / grad_tolerance(want, rel), with the ulp of got's dtype."""
+def tol_ratio(torch, got, want, rel, extra=None):
+    """max |got - want| / (grad_tolerance(want, rel) + extra), with the ulp of
+    got's dtype; ``extra`` (broadcast against want) defaults to 0."""
     d = (got.detach().float() - want.detach().float()).abs()
-    return float((d / grad_tolerance(torch, want, rel, got.dtype)).max())
+    tol = grad_tolerance(torch, want, rel, got.dtype)
+    return float((d / (tol if extra is None else tol + extra)).max())
 
 
-def compare(torch, label, got, want, rel):
+def compare(torch, label, got, want, rel, extra=None):
     """Raise unless ``got`` is finite and within grad_tolerance(want, rel)
-    everywhere; returns (max |d|, max |d| / tol)."""
-    ratio = tol_ratio(torch, got, want, rel)
+    (+ ``extra``) everywhere; returns (max |d|, max |d| / tol)."""
+    ratio = tol_ratio(torch, got, want, rel, extra)
     finite = bool(torch.isfinite(got.detach().float()).all())
     if not finite or ratio > 1.0:
         raise AssertionError(f"{label}: max |d|/tol {ratio:.3f}, finite {finite}")
@@ -664,6 +682,14 @@ def check_attention_backward(torch):
                 lambda: A.flash_attention_bwd_dkv(q, k, v, do, stats, delta, mask, scale),
                 plain_bwd, lib_bwd, 6 * B * H * T * D * isz + 12 * B * H * T + B * T,
                 8 * flops, peak, reps=5))
+            dq_k, _ = A.flash_attention_bwd_dq(q, k, v, do, stats, delta, mask, scale)
+            dq_p, _ = A.flash_attention_bwd_dq_plain(q, k, v, do, stats, delta, mask, scale)
+            rel_own = 0.002 if dtype == torch.bfloat16 else 2e-5
+            own = compare(torch, f"K2 dq kernel {label} vs its plain version", dq_k, dq_p,
+                          rel_own)[1]
+            log(f"  K2 dq kernel {label} vs flash_attention_bwd_dq_plain: |d|/tol {own:.3f} "
+                f"(2 ulp + {rel_own} RMS): ok")
+            del dq_k, dq_p
             rows["flash_attention_bwd_dq"].append(timing_row(
                 torch, shape, dtype, *checks["dq"],
                 lambda: A.flash_attention_bwd_dq(q, k, v, do, stats, delta, mask, scale),
@@ -798,7 +824,7 @@ def check_splash(torch):
             scale = D ** -0.5
             qs = A.prescale(q, scale)
             got = A.splash_attention(q, k, v, mask, scale)
-            got_res, lse = A.splash_attention_fwd_res(qs, k, v, mask)
+            got_res, lse, _ = A.splash_attention_fwd_res(qs, k, v, mask)
             want = A.splash_attention_plain(q, k, v, mask, scale)
             scores = torch.matmul(qs.float(), k.float().transpose(-1, -2)).masked_fill(
                 ~segment_mask(mask), A.SPLASH_MASK_VALUE)
@@ -838,13 +864,74 @@ def check_splash(torch):
     return rows
 
 
+def splash_f32_reference(torch, qs, k, v, do, mask):
+    """The f32 reference of K4's bf16 backward: dqs (the gradient of the
+    pre-scaled q), dk, dv of splash's function on f32 copies of the bf16
+    inputs, with splash's roundings of P and dS to bf16 kept, the exact f32
+    log-sum-exp and di = rowsum(P dP) in f32 (not from the bf16 output)."""
+    from some_tpu_torch.ops import attention as A
+
+    f = [t.float() for t in (qs, k, v, do)]
+    s = torch.matmul(f[0], f[1].transpose(-1, -2)).masked_fill(~segment_mask(mask),
+                                                               A.SPLASH_MASK_VALUE)
+    lse = torch.logsumexp(s, dim=-1)
+    del s
+    p, dp = A._splash_p_dp(*f, lse, mask)
+    di = (p * dp).sum(-1)
+    del p, dp
+    return (A.splash_attention_bwd_dq_plain(*f, lse, di, mask, torch.bfloat16),
+            *A.splash_attention_bwd_dkv_plain(*f, lse, di, mask, torch.bfloat16))
+
+
+def splash_flip_allowance(torch, qs, k, v, do, lse, di, mask):
+    """What K4's bf16 dk and dv may differ from splash_attention_bwd_dkv_plain's
+    on top of grad_tolerance. Both round P and dS = (dP - di) P to bf16 once,
+    as splash does, from f32 values that differ in their last bits (exp on
+    the special-function unit, sums in another order), and one term that
+    lands on the other side of a bf16 rounding moves dk by a bf16 ulp of its
+    dS times its qs, and dv by a bf16 ulp of its P times its dO: more than
+    0.002 RMS where T is long and the terms are many and small (on an H100:
+    dv 2.884 at [8, 8, 1024, 64], dk 2.2356 at (3, 2, 1000, 32)). Per
+    element (key j, column d): the largest such term over the key's
+    queries, one flip.
+    Returns (for dk, for dv)."""
+    from some_tpu_torch.ops import attention as A
+
+    def one_flip(x, y):
+        """max over queries q of ulp_bf16(x[q, j]) * |y[q, d]|, in chunks of queries."""
+        _, exponent = torch.frexp(x)
+        ulp = torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), exponent - 8))
+        del exponent
+        B, H, T, D = y.shape
+        y = y.float().abs()
+        out = torch.zeros((B, H, T, D), device=y.device)
+        step = max(1, 2 ** 28 // (B * H * T * D))
+        for q0 in range(0, T, step):
+            terms = ulp[:, :, q0:q0 + step, :, None] * y[:, :, q0:q0 + step, None, :]
+            out = torch.maximum(out, terms.amax(dim=2))
+            del terms
+        return out
+
+    p, dp = A._splash_p_dp(qs, k, v, do, lse, mask)
+    dv = one_flip(p, do)
+    ds = (dp - di[..., None]) * p
+    del p, dp
+    return one_flip(ds, qs), dv
+
+
 def check_splash_backward(torch):
     """K4 for training through SplashAttentionFn against the plain
     version's autograd, with a random dO: chip_smoke's grad_tolerance with
     rel 5e-5 in f32 and 0.1 in bf16 (the kernels round P and dS to bf16 as
     splash's do, the plain autograd keeps them f32). Then with dO zero on the
     padded query rows: dq at padded queries and dk, dv at padded keys must
-    be exactly 0 (no gradient crosses segments)."""
+    be exactly 0 (no gradient crosses segments). Then the kernels one by
+    one on di from the training forward's output and its residual
+    (splash_di), as the backward runs them: dq against
+    splash_attention_bwd_dq_plain and dk, dv against
+    splash_attention_bwd_dkv_plain, 2 ulp + 0.002 RMS in bf16 and 2e-5 RMS
+    in f32; in bf16 all three against splash_f32_reference, 2 ulp + 0.02
+    RMS."""
     import torch.nn.functional as F
     from some_tpu_torch.ops import attention as A
 
@@ -879,8 +966,33 @@ def check_splash_backward(torch):
                 f"at the {int(pad.sum())} padded frames: ok")
 
             qs = A.prescale(q, scale)
-            out_k, lse = A.splash_attention_fwd_res(qs, k, v, mask)
-            di = (out_k.float() * do.float()).sum(-1).contiguous()
+            out_k, lse, out_lo = A.splash_attention_fwd_res(qs, k, v, mask)
+            di = A.splash_di(out_k, out_lo, do)
+            got = (A.splash_attention_bwd_dq(qs, k, v, do, lse, di, mask),
+                   *A.splash_attention_bwd_dkv(qs, k, v, do, lse, di, mask))
+            bf16 = dtype == torch.bfloat16
+            rel_own = 0.002 if bf16 else 2e-5
+            flips = ((None, *splash_flip_allowance(torch, qs, k, v, do, lse, di, mask))
+                     if bf16 else (None, None, None))
+            plains = (A.splash_attention_bwd_dq_plain(qs, k, v, do, lse, di, mask),
+                      *A.splash_attention_bwd_dkv_plain(qs, k, v, do, lse, di, mask))
+            own = [compare(torch, f"K4 {n} kernel {label} vs its plain version", g, w, rel_own,
+                           extra)[1]
+                   for n, g, w, extra in zip(("dq", "dk", "dv"), got, plains, flips)]
+            text = f"(dq, dk, dv) |d|/tol vs their plain versions {[round(r, 3) for r in own]} " \
+                   f"(2 ulp + {rel_own} RMS{' + one rounding flip for dk, dv' if bf16 else ''}"
+            if bf16:
+                text += ", without it " + str([round(tol_ratio(torch, g, w, rel_own), 3)
+                                               for g, w in zip(got, plains)])
+            text += ")"
+            del flips, plains
+            if bf16:
+                f32 = [compare(torch, f"K4 {n} {label} vs the f32 reference", g, w, 0.02)[1]
+                       for n, g, w in zip(("dqs", "dk", "dv"), got,
+                                          splash_f32_reference(torch, qs, k, v, do, mask))]
+                text += f", vs splash_f32_reference {[round(r, 3) for r in f32]} (2 ulp + 0.02 RMS)"
+            log(f"  K4 backward kernels {label}: {text}: ok")
+            del got
             seg = segment_mask(mask)
             lib_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             lib_out = F.scaled_dot_product_attention(*lib_leaves, attn_mask=seg, scale=scale)
@@ -899,7 +1011,8 @@ def check_splash_backward(torch):
                 torch, shape, dtype, *compare(torch, f"K4 out {label}", out, want_out, rel),
                 lambda: A.splash_attention_fwd_res(qs, k, v, mask),
                 lambda: A.splash_attention_plain(q, k, v, mask, scale), lib_fwd,
-                4 * B * H * T * D * isz + B * T + 4 * B * H * T, 4 * flops, peak, reps=5))
+                (4 + (out_lo is not None)) * B * H * T * D * isz + B * T + 4 * B * H * T,
+                4 * flops, peak, reps=5))
             rows["splash_attention_bwd_dkv"].append(timing_row(
                 torch, shape, dtype, *d_kv,
                 lambda: A.splash_attention_bwd_dkv(qs, k, v, do, lse, di, mask),
@@ -915,7 +1028,7 @@ def check_splash_backward(torch):
                 log(f"  {name} {label}: kernel {r['kernel_ms']:.4f} ms, plain {r['plain_ms']:.4f}"
                     f" ms, SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                     f"({r['bound_by']})")
-            del q, k, v, do, leaves, out, grads, want_out, wants, zeroed, qs, out_k, lse, di
+            del q, k, v, do, leaves, out, grads, want_out, wants, zeroed, qs, out_k, lse, di, out_lo
             del lib_leaves, lib_out, plain_bwd, lib_bwd, seg
             torch.cuda.empty_cache()
     return rows
@@ -1276,15 +1389,20 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build()
     log(f"build: {len(libs)} kernels in {time.perf_counter() - t0:.1f} s")
+    registers = {}
     for name, path in libs.items():
-        report = path.with_suffix(".log").read_text().splitlines()
-        regs = [int(line.split("Used ")[1].split()[0]) for line in report if "registers" in line]
+        report = path.with_suffix(".log").read_text()
+        regs = kernel_registers(report)
+        registers.update(regs)
         spills = sum(int(line.split(" bytes spill stores")[0].split()[-1])
-                     for line in report if "spill stores" in line)
-        log(f"  {name}: {len(regs)} kernel variants, at most {max(regs)} registers, "
+                     for line in report.splitlines() if "spill stores" in line)
+        log(f"  {name}: {len(regs)} kernel variants, at most {max(regs.values())} registers, "
             f"{spills} bytes of spill stores")
     hmma = hmma_counts(libs, _build.nvcc_path())
     log("HMMA instructions per kernel variant (cuobjdump -sass): " + json.dumps(hmma))
+    log("registers of the tensor-core kernels' variants: " + json.dumps(
+        {n: r for n, r in registers.items()
+         if any(kernel in n for _, kernel, _ in TENSOR_CORE_KERNELS)}))
 
     rows = {"depthwise_conv1d": check_depthwise(torch), "flash_attention": check_attention(torch)}
     rows.update(check_depthwise_backward(torch))
@@ -1329,6 +1447,8 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": f"some_tpu_torch/csrc/{source}",
                 "bf16_hmma": ({n: c for n, c in hmma.items() if tensor_core[0] in n}
                               if tensor_core else None),
+                "bf16_registers": ({n: r for n, r in registers.items() if tensor_core[0] in n}
+                                   if tensor_core else None),
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "launches_per_train_step": {

@@ -1,14 +1,18 @@
 // The tensor-core tile of the bf16 attention kernels on Hopper (flash_attention.cu's inference and
-// training forwards, splash_attention.cu's forward, flash_attention_bwd.cu's dk/dv kernel): bf16
-// tiles copied with cp.async into a double-buffered ring in shared memory, read with ldmatrix,
-// multiplied with mma.sync.m16n8k16 (bf16 operands, f32 sums).
+// training forwards, flash_attention_bwd.cu's dk/dv and dq kernels, splash_attention.cu's forward,
+// splash_attention_bwd.cu's dk/dv kernel): bf16 tiles copied with cp.async into a double-buffered
+// ring in shared memory, read with ldmatrix, multiplied with mma.sync.m16n8k16 (bf16 operands,
+// f32 sums).
 //
 // A forward's block owns 64 queries of one (batch, head) and 4 warps; warp w owns query rows
 // 16 w .. 16 w + 15. Q is copied once and kept in registers as A fragments. K and V come in tiles
 // of 64 keys: while the warps multiply one tile, the copies of the next are in flight, and each
 // tile costs one barrier. Rows past T are zero-filled by the copy itself (cp.async's src-size 0),
-// so the ragged edge needs no branch. A dk/dv kernel swaps the sides: its block owns 64 keys, K
-// and V are its A fragments (carve_smem_kv), and the ring carries Q and dO.
+// so the ragged edge needs no branch. The dq kernel's block owns queries too, with Q and dO as A
+// fragments (carve_smem with two A tiles); K, the B operand of dQ += dS K, sits in the ring in
+// V's layout, so pv_step2 multiplies it with dS and with P from one read. A dk/dv kernel swaps the
+// sides: its block owns 64 keys, K and V are its A fragments (carve_smem_kv), and the ring carries
+// Q and dO.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16): lane = 4 g + c. The f32 accumulator of a
 // 16 x 8 tile holds rows g (registers 0, 1) and g + 8 (2, 3) at columns 2 c, 2 c + 1. The A
@@ -59,42 +63,44 @@ struct Layout {
   static constexpr int kOutTiles = D / 8;        // n8 tiles of a warp's output rows
 };
 
-// Dynamic shared memory of a forward: the Q tile, the K and V rings of two tiles each, and the
-// two tile bitmaps of TileFilter.
+// Dynamic shared memory of a block that owns queries: its A-operand tiles (Q; Q and dO in the dq
+// kernel), the K and V rings of two tiles each, and the two tile bitmaps of TileFilter.
 template <int D>
-inline int smem_bytes(int n_tiles) {
-  return 5 * Layout<D>::kTile * static_cast<int>(sizeof(bf16)) +
+inline int smem_bytes(int n_tiles, int a_tiles = 1) {
+  return (a_tiles + 4) * Layout<D>::kTile * static_cast<int>(sizeof(bf16)) +
          2 * ((n_tiles + 31) / 32) * static_cast<int>(sizeof(uint32_t));
 }
 
 // Dynamic shared memory of a dk/dv kernel, which swaps the sides: the block's K and V tiles (A
-// operands, as Q is in a forward), the Q and dO rings of two tiles each, and the three f32 values
-// (m, l, delta) of the 64 queries of two query tiles. No bitmaps: every query tile is walked.
+// operands, as Q is in a forward), the Q and dO rings of two tiles each, the three f32 values
+// of the 64 queries of two query tiles ((m, l, delta) in K2's, (lse, di) in K4's) and the two
+// tile bitmaps (K4's, which skips query tiles).
 template <int D>
-inline int smem_bytes_kv() {
+inline int smem_bytes_kv(int n_tiles) {
   return 6 * Layout<D>::kTile * static_cast<int>(sizeof(bf16)) +
-         2 * 3 * kRows * static_cast<int>(sizeof(float));
+         2 * 3 * kRows * static_cast<int>(sizeof(float)) +
+         2 * ((n_tiles + 31) / 32) * static_cast<int>(sizeof(uint32_t));
 }
 
 // A block's dynamic shared memory, carved as smem_bytes or smem_bytes_kv counts it.
 struct Smem {
-  bf16* q_tile;    // the block's A-operand tile: Q in a forward, K in a dk/dv kernel
-  bf16* v_tile;    // a dk/dv kernel's second A-operand tile, V
+  bf16* q_tile;    // the block's A-operand tile: Q (forwards, dq kernel), K (dk/dv kernels)
+  bf16* v_tile;    // the second A-operand tile: dO in the dq kernel, V in a dk/dv kernel
   bf16* k_ring;    // the walked tiles: K in a forward, Q in a dk/dv kernel
   bf16* v_ring;    // V in a forward, dO in a dk/dv kernel
-  uint32_t* seg0;  // TileFilter's bitmaps, n_words each (forwards)
+  uint32_t* seg0;  // TileFilter's bitmaps, n_words each
   uint32_t* seg1;
-  float* row_vals;  // a dk/dv kernel's per-query values: 2 x 64 (m, l) pairs, then 2 x 64 delta
+  float* row_vals;  // a dk/dv kernel's per-query values of two query tiles: 3 x 2 x 64 floats
   int n_tiles;  // tiles of 64 below T
   int n_words;
 };
 
 template <int D>
-__device__ __forceinline__ Smem carve_smem(unsigned char* base, int t_len) {
+__device__ __forceinline__ Smem carve_smem(unsigned char* base, int t_len, int a_tiles = 1) {
   Smem s;
   s.q_tile = reinterpret_cast<bf16*>(base);
-  s.v_tile = nullptr;
-  s.k_ring = s.q_tile + Layout<D>::kTile;
+  s.v_tile = a_tiles == 2 ? s.q_tile + Layout<D>::kTile : nullptr;
+  s.k_ring = s.q_tile + a_tiles * Layout<D>::kTile;
   s.v_ring = s.k_ring + 2 * Layout<D>::kTile;
   s.n_tiles = (t_len + kRows - 1) / kRows;
   s.n_words = (s.n_tiles + 31) / 32;
@@ -112,9 +118,10 @@ __device__ __forceinline__ Smem carve_smem_kv(unsigned char* base, int t_len) {
   s.k_ring = s.v_tile + Layout<D>::kTile;
   s.v_ring = s.k_ring + 2 * Layout<D>::kTile;
   s.n_tiles = (t_len + kRows - 1) / kRows;
-  s.n_words = 0;
-  s.seg0 = s.seg1 = nullptr;
+  s.n_words = (s.n_tiles + 31) / 32;
   s.row_vals = reinterpret_cast<float*>(s.v_ring + 2 * Layout<D>::kTile);
+  s.seg0 = reinterpret_cast<uint32_t*>(s.row_vals + 2 * 3 * kRows);
+  s.seg1 = s.seg0 + s.n_words;
   return s;
 }
 
@@ -298,6 +305,34 @@ __device__ __forceinline__ void pv_step(float (&o)[Layout<D>::kOutTiles][4],
   }
 }
 
+// pv_step into two accumulators from one read of the staged tile: o1 += sum of the NP1 products
+// pf1[i] V, o2 += sum of the NP2 products pf2[i] V.
+template <int D, int NP1, int NP2>
+__device__ __forceinline__ void pv_step2(float (&o1)[Layout<D>::kOutTiles][4],
+                                         const uint32_t (&pf1)[NP1][4],
+                                         float (&o2)[Layout<D>::kOutTiles][4],
+                                         const uint32_t (&pf2)[NP2][4], const bf16* v_tile,
+                                         int ks) {
+  const int lane = threadIdx.x & 31;
+  const bf16* base = v_tile + (16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3)) *
+                                  Layout<D>::kStride + ((lane >> 4) << 3);
+#pragma unroll
+  for (int dp = 0; dp < D / 16; ++dp) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, base + 16 * dp);
+#pragma unroll
+    for (int i = 0; i < NP1; ++i) {
+      mma_bf16(o1[2 * dp], pf1[i], b[0], b[1]);
+      mma_bf16(o1[2 * dp + 1], pf1[i], b[2], b[3]);
+    }
+#pragma unroll
+    for (int i = 0; i < NP2; ++i) {
+      mma_bf16(o2[2 * dp], pf2[i], b[0], b[1]);
+      mma_bf16(o2[2 * dp + 1], pf2[i], b[2], b[3]);
+    }
+  }
+}
+
 // A lane's two mask bytes of the tile at key k0 (keys k0 + lane, k0 + 32 + lane): the byte, 1
 // without a mask, 0 past T. Loaded a tile ahead and turned into bits by real_bits.
 __device__ __forceinline__ uint2 load_key_bytes(const uint8_t* mb, int k0, int t_len) {
@@ -430,8 +465,9 @@ __device__ __forceinline__ void walk_tiles(const Smem& sm, const TileFilter& fil
 }
 
 // Writes the warp's output rows below T, row i times row_scale[i], as bf16 pairs through the
-// time stride ots.
-template <int D>
+// time stride ots; with kResidual, what rounding to bf16 left of each value, itself rounded to bf16
+// (x - bf16(x)), so that the two stores together carry x to about 2^-16 |x|.
+template <int D, bool kResidual = false>
 __device__ __forceinline__ void store_output(bf16* ob, long long ots, int q0, int t_len,
                                              const float (&o)[Layout<D>::kOutTiles][4],
                                              const float (&row_scale)[2]) {
@@ -442,9 +478,13 @@ __device__ __forceinline__ void store_output(bf16* ob, long long ots, int q0, in
     if (t >= t_len) continue;
     bf16* orow = ob + t * ots + 2 * c;
 #pragma unroll
-    for (int n = 0; n < Layout<D>::kOutTiles; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
-          __floats2bfloat162_rn(o[n][2 * i] * row_scale[i], o[n][2 * i + 1] * row_scale[i]);
+    for (int n = 0; n < Layout<D>::kOutTiles; ++n) {
+      const float x0 = o[n][2 * i] * row_scale[i], x1 = o[n][2 * i + 1] * row_scale[i];
+      __nv_bfloat162 y = __floats2bfloat162_rn(x0, x1);
+      if (kResidual)
+        y = __floats2bfloat162_rn(x0 - __low2float(y), x1 - __high2float(y));
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = y;
+    }
   }
 }
 
@@ -460,12 +500,12 @@ cudaError_t launch_grid(void (*kernel)(Params...), int smem, int batch, int head
   return cudaGetLastError();
 }
 
-// launch_grid with the shared memory of a forward (smem_bytes).
-template <int D, typename... Params, typename... Args>
+// launch_grid with the shared memory of a block that owns queries (smem_bytes), a_tiles A tiles.
+template <int D, int a_tiles = 1, typename... Params, typename... Args>
 cudaError_t launch_blocks(void (*kernel)(Params...), int batch, int heads, int t_len,
                           cudaStream_t stream, Args... args) {
-  return launch_grid(kernel, smem_bytes<D>((t_len + kRows - 1) / kRows), batch, heads, t_len,
-                     stream, args...);
+  return launch_grid(kernel, smem_bytes<D>((t_len + kRows - 1) / kRows, a_tiles), batch, heads,
+                     t_len, stream, args...);
 }
 
 }  // namespace some_mma

@@ -40,9 +40,9 @@
 // unnormalised and divides by l at the store, as the f32 kernel does; the training forward
 // rounds the normalized p. Both skip a key tile whose keys are all masked or past T, but only in
 // a batch row with a real key, where exp(-1e9 - m) is exactly 0; in an all-masked row the masked
-// keys carry the uniform average, so every tile is walked. The bf16 dk/dv kernel sums S^T = K Q^T
-// with the same products in the same k16 steps, so its P is the training forward's bit for bit;
-// the dq kernel rebuilds P with CUDA-core FMAs, to rounding.
+// keys carry the uniform average, so every tile is walked. The bf16 dq kernel forms S with
+// masked_scores (flash_common.cuh) and the bf16 dk/dv kernel sums S^T = K Q^T with the same
+// products in the same k16 steps, so both rebuild the training forward's P bit for bit.
 #include <type_traits>
 
 #include "attention_mma.cuh"
@@ -338,36 +338,6 @@ flash_fwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
       }
     }
   }
-}
-
-// The scores of key tile j on the tensor cores (attention_mma.cuh), as flash_fwd_stats_kernel
-// forms them: s = Q K^T summed over d in k16 steps, then s * scale rounded once, masked keys
-// -1e9, keys past T -inf. real is the tile's real_bits. The dk/dv kernel (flash_attention_bwd.cu)
-// forms S^T with the same products, k16 steps and arithmetic, so its P is this P bit for bit.
-template <int D>
-__device__ __forceinline__ void masked_scores(float (&s)[8][4],
-                                              const uint32_t (&qf)[some_mma::Layout<D>::kKSteps][4],
-                                              const __nv_bfloat16* k_tile, int j, uint64_t real,
-                                              int t_len, float scale) {
-  namespace mma = some_mma;
-  mma::score_tile<D>(s, qf, k_tile);
-  if (real == ~0ull) {  // every key real: nothing to mask
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale);
-    return;
-  }
-  const uint32_t is_real = mma::thread_columns(real);
-  const uint32_t below_t = mma::thread_columns(mma::below_t_bits(j * mma::kRows, t_len));
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int bit = 2 * n + (e & 1);
-      s[n][e] = ((is_real >> bit) & 1u) ? __fmul_rn(s[n][e], scale)
-                                        : (((below_t >> bit) & 1u) ? kMaskedScore : -INFINITY);
-    }
 }
 
 // The walk over a row's key tiles of the bf16 forwards: the tiles with a real key; in a row with

@@ -15,7 +15,7 @@
 //
 // Bound: operations (the five T x T x D products below against 8 * T * D elements moved per
 // (batch, head)). f32 does its products as f32 FMAs on the CUDA cores (no TF32), with f32
-// accumulators; the bf16 dk/dv kernel runs on the tensor cores (below).
+// accumulators; the bf16 dk/dv and dq kernels run on the tensor cores (below).
 //
 // Design: two kernels, each with 128 threads and one tile of 64 rows, and no atomics, so two
 // runs give the same bits.
@@ -34,20 +34,27 @@
 //     (ds * sm_scale, then astype): that one rounding takes dK past 2 ulp + 0.02 RMS of the f32
 //     gradient at a point of the GPU test grid (PERF.md). In a row with a real key, a block whose
 //     keys are all masked or past T writes dK = dV = 0 and returns: exactly what walking gives.
-//   * dq: a block owns 64 queries, keeps Q^T and dO^T in shared memory and its dQ rows in
-//     registers, and walks the key tiles. Each thread holds 4 queries x 8 keys. It stays on the
-//     CUDA cores in both dtypes: in bf16 the P it rebuilds with FMAs equals the forward's to
-//     rounding, not bit for bit; in f32 bit for bit. The caller's delta = rowsum(dO * O), as JAX
-//     takes it, has O as the forward stored it, rounded to bf16, and the sum of dS over a row
-//     cancels to its error; where P is peaked, that error times sum P K reaches the whole dQ
-//     row at once and took it past 2 ulp + 0.02 RMS of the f32 gradient (PERF.md). So the walk
-//     also sums r = sum P (dP - delta) and P K over the real keys, and dQ = scale (sum dS K -
-//     r sum P K): the dQ of delta = sum P dP in f32, the plain autograd's delta, at the cost of
-//     a fourth product. The kernel writes that delta + r, and the dk/dv kernel, launched after
-//     it, takes it: the caller's delta took dK past the same bound on some random draws.
+//   * dq: a block owns 64 queries, keeps its dQ rows in registers, and walks the key tiles. The
+//     caller's delta = rowsum(dO * O), as JAX takes it, has O as the forward stored it, rounded
+//     to bf16, and the sum of dS over a row cancels to its error; where P is peaked, that error
+//     times sum P K reaches the whole dQ row at once and took it past 2 ulp + 0.02 RMS of the f32
+//     gradient (PERF.md). So the walk also sums r = sum P (dP - delta) and P K over the real
+//     keys, and dQ = scale (sum dS K - r sum P K): the dQ of delta = sum P dP in f32, the plain
+//     autograd's delta, at the cost of a fourth product. The kernel writes that delta + r, and
+//     the dk/dv kernel, launched after it, takes it: the caller's delta took dK past the same
+//     bound on some random draws. In f32 (flash_bwd_dq_kernel) Q^T and dO^T stay in shared
+//     memory and each thread holds 4 queries x 8 keys. In bf16 (flash_bwd_dq_mma_kernel) it is
+//     the training forward's tile with dO beside Q: Q and dO are A fragments (warp w owns queries
+//     16 w .. 16 w + 15), the ring carries K and V. S = Q K^T comes from masked_scores, the
+//     forward's, so P = exp(s - m) * (1 / l) is the forward's bit for bit; dP = dO V^T in f32.
+//     dS = P (dP - delta), 0 at a masked key, times the scale goes into dQ += dS K as hi + lo
+//     (two mma, as the dk/dv kernel takes dS for dK), and round(P) into sum P K, both with K as
+//     the B operand in V's layout from one read of the tile (pv_step2). Key tiles with no real
+//     key add exactly 0 to all three sums and are skipped; a row with no real key walks none and
+//     keeps dQ = 0 and its delta.
 // Inputs are read, and dQ, dK, dV written, through their strides, so all may be [B, H, T, D]
-// views of [B, T, H, D] storage; the bf16 dk/dv kernel copies rows with cp.async, so its wrapper
-// raises on rows that are not 16-byte aligned.
+// views of [B, T, H, D] storage; the bf16 kernels copy rows with cp.async, so their wrappers
+// raise on rows that are not 16-byte aligned.
 #include <type_traits>
 
 #include "attention_mma.cuh"
@@ -425,6 +432,111 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
+// The bf16 dq kernel on the tensor cores: flash_bwd_dq_kernel's function, delta correction
+// included, on the tile of attention_mma.cuh (see the note at the top). Warp w owns query rows
+// 16 w .. 16 w + 15 of the block, held as A fragments of Q and dO; a thread holds rows g and g + 8
+// (lane = 4 g + c) of each S and dP tile, against keys 8 n + 2 c, 8 n + 2 c + 1.
+template <int D>
+__global__ void __launch_bounds__(some_mma::kThreads)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ stats, const float* __restrict__ delta,
+                        const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ dq,
+                        float* __restrict__ delta_out, int t_len, Strides qs, Strides ks,
+                        Strides vs_, Strides dos, Strides dqs, float scale) {
+  namespace mma = some_mma;
+  using L = mma::Layout<D>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  const mma::Smem sm = mma::carve_smem<D>(mma_smem, t_len, 2);
+  const int q0 = blockIdx.x * mma::kRows;
+  const uint8_t* mb = mask ? mask + static_cast<size_t>(blockIdx.z) * t_len : nullptr;
+
+  mma::load_tile<D>(sm.q_tile, mma::head_slice(q, qs), qs.t, q0, t_len);
+  mma::load_tile<D>(sm.v_tile, mma::head_slice(dout, dos), dos.t, q0, t_len);
+  mma::cp_async_commit();
+  // exact skipping: a key tile with no real key adds exactly 0 to dS K, to r and to the real keys'
+  // P K (dS and P are taken as 0 at a masked key), so only tiles with a real key are walked; a
+  // row with none walks no tile and keeps dq = 0 and its delta
+  mma::TileFilter filter{nullptr, nullptr, false, true};
+  if (mb != nullptr) {
+    mma::tile_segments(sm, mb, t_len);
+    filter = mma::TileFilter{sm.seg0, sm.seg1, false, true};
+  }
+  // the thread's two query rows: m, 1 / l and the caller's delta; past T all 0, never stored
+  const size_t row0 = (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * t_len;
+  float m[2], inv_l[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = q0 + mma::thread_row(i);
+    const bool valid = t < t_len;
+    m[i] = valid ? stats[(row0 + t) * 2] : 0.0f;
+    inv_l[i] = valid ? 1.0f / stats[(row0 + t) * 2 + 1] : 0.0f;
+    dl[i] = valid ? delta[row0 + t] : 0.0f;
+  }
+  uint32_t qf[L::kKSteps][4], dof[L::kKSteps][4];
+  mma::load_q_fragments<D>(qf, sm);
+  mma::load_a_fragments<D>(dof, sm.v_tile);
+
+  // o_ds = sum (dS scale) K with the caller's delta, o_pk = sum round(P) K and r = sum dS over the
+  // real keys (this thread's columns), for the correction at the end
+  float o_ds[L::kOutTiles][4] = {}, o_pk[L::kOutTiles][4] = {};
+  float r[2] = {0.0f, 0.0f};
+  mma::walk_tiles<D, true>(
+      sm, filter, mma::head_slice(k, ks), ks.t, mma::head_slice(v, vs_), vs_.t, mb, t_len,
+      [&](int j, const bf16* k_tile, const bf16* v_tile, uint64_t real) {
+        float s[8][4], dp[8][4];
+        masked_scores<D>(s, qf, k_tile, j, real, t_len, scale);  // S, the forward's arithmetic
+        mma::score_tile<D>(dp, dof, v_tile);                      // dP = dO V^T, f32
+        const uint32_t is_real = mma::thread_columns(real);
+        // 16 keys a step: register 2 hh + i of a fragment holds row i's pair of tile 2 ks + hh
+#pragma unroll
+        for (int kstep = 0; kstep < 4; ++kstep) {
+          uint32_t sf[2][4], pf[1][4];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int n = 2 * kstep + hh;
+            const bool real0 = (is_real >> (2 * n)) & 1u, real1 = (is_real >> (2 * n + 1)) & 1u;
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              // P as the training forward's pass 2 forms it, then 0 at a masked key
+              float p0 = __fmul_rn(mma::exp_(__fsub_rn(s[n][2 * i], m[i])), inv_l[i]);
+              float p1 = __fmul_rn(mma::exp_(__fsub_rn(s[n][2 * i + 1], m[i])), inv_l[i]);
+              p0 = real0 ? p0 : 0.0f;
+              p1 = real1 ? p1 : 0.0f;
+              const float ds0 = p0 * (dp[n][2 * i] - dl[i]);
+              const float ds1 = p1 * (dp[n][2 * i + 1] - dl[i]);
+              r[i] += ds0;
+              r[i] += ds1;
+              mma::split_bf16(ds0 * scale, ds1 * scale, sf[0][2 * hh + i], sf[1][2 * hh + i]);
+              pf[0][2 * hh + i] = mma::pack_bf16(__floats2bfloat162_rn(p0, p1));
+            }
+          }
+          // K is the B operand in V's layout: dQ += (dS scale) K as hi + lo, and round(P) K
+          mma::pv_step2<D, 2, 1>(o_ds, sf, o_pk, pf, k_tile, kstep);
+        }
+      });
+
+  // dq = scale (sum dS K - r sum P K): the dq of delta + r = rowsum(P dP) over the real keys
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    r[i] = mma::quad_sum(r[i]);
+    const float rs = -r[i] * scale;
+#pragma unroll
+    for (int n = 0; n < L::kOutTiles; ++n) {
+      o_ds[n][2 * i] = fmaf(rs, o_pk[n][2 * i], o_ds[n][2 * i]);
+      o_ds[n][2 * i + 1] = fmaf(rs, o_pk[n][2 * i + 1], o_ds[n][2 * i + 1]);
+    }
+  }
+  mma::store_output<D>(mma::head_slice(dq, dqs), dqs.t, q0, t_len, o_ds, {1.0f, 1.0f});
+  if ((threadIdx.x & 3) != 0) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = q0 + mma::thread_row(i);
+    if (t < t_len) delta_out[row0 + t] = dl[i] + r[i];
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *stats, *delta;
@@ -448,10 +560,10 @@ cudaError_t launch_dkv(const Args& a) {
   T* dv = static_cast<T*>(a.dv);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     // bf16 runs on the tensor cores; f32 stays on the CUDA cores (true f32)
-    return some_mma::launch_grid(flash_bwd_dkv_mma_kernel<D>, some_mma::smem_bytes_kv<D>(),
-                                 a.batch, a.heads, a.t_len, a.stream, q, k, v, dout, a.stats,
-                                 a.delta, mask, dk, dv, a.t_len, a.qs, a.ks, a.vs_, a.dos, a.dks,
-                                 a.dvs, a.scale);
+    return some_mma::launch_grid(flash_bwd_dkv_mma_kernel<D>,
+                                 some_mma::smem_bytes_kv<D>((a.t_len + kBK - 1) / kBK), a.batch,
+                                 a.heads, a.t_len, a.stream, q, k, v, dout, a.stats, a.delta, mask,
+                                 dk, dv, a.t_len, a.qs, a.ks, a.vs_, a.dos, a.dks, a.dvs, a.scale);
   } else {
     const int smem = dkv_smem_floats<D>() * static_cast<int>(sizeof(float));
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
@@ -467,16 +579,29 @@ cudaError_t launch_dkv(const Args& a) {
 
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a) {
-  const int smem = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.t_len + kBQ - 1) / kBQ, a.heads, a.batch);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.stats, a.delta, static_cast<const uint8_t*>(a.mask),
-      static_cast<T*>(a.dq), a.delta_out, a.t_len, a.qs, a.ks, a.vs_, a.dos, a.dqs, a.scale);
-  return cudaGetLastError();
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  const uint8_t* mask = static_cast<const uint8_t*>(a.mask);
+  T* dq = static_cast<T*>(a.dq);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // bf16 runs on the tensor cores; f32 stays on the CUDA cores (true f32)
+    return some_mma::launch_blocks<D, 2>(flash_bwd_dq_mma_kernel<D>, a.batch, a.heads, a.t_len,
+                                         a.stream, q, k, v, dout, a.stats, a.delta, mask, dq,
+                                         a.delta_out, a.t_len, a.qs, a.ks, a.vs_, a.dos, a.dqs,
+                                         a.scale);
+  } else {
+    const int smem = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.t_len + kBQ - 1) / kBQ, a.heads, a.batch);
+    flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+        q, k, v, dout, a.stats, a.delta, mask, dq, a.delta_out, a.t_len, a.qs, a.ks, a.vs_,
+        a.dos, a.dqs, a.scale);
+    return cudaGetLastError();
+  }
 }
 
 // which: 0 = dkv, 1 = dq

@@ -5,15 +5,17 @@
 // multiplied with v: s = sum_d q[d] * k[d] as f32 fused multiply-adds in ascending d from 0,
 // score = s * scale rounded once (no contraction with what follows), masked keys -1e9, keys past
 // T -inf, and p = exp(score - m) * (1 / l) with the row statistics (m, l) the forward stored.
-// That holds in f32. In bf16 the training forward and the dk/dv kernel run on the tensor cores
-// (attention_mma.cuh) and agree bit for bit; the dq kernel still rebuilds Q K^T with these FMAs,
-// so in bf16 its P equals the forward's to rounding, not bit for bit.
+// That holds in f32. In bf16 all three run on the tensor cores (attention_mma.cuh): the training
+// forward and the dq kernel take masked_scores below, the dk/dv kernel forms S^T with the same
+// products and k16 steps, and all three agree bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "attention_mma.cuh"
 
 namespace some_flash {
 
@@ -96,5 +98,36 @@ __device__ __forceinline__ float prob(float score, float m, float inv_l) {
 }
 
 inline Strides strides_of(const long long* s) { return Strides{s[0], s[1], s[2]}; }
+
+// The scores of key tile j on the tensor cores (attention_mma.cuh), as flash_fwd_stats_kernel
+// forms them: s = Q K^T summed over d in k16 steps, then s * scale rounded once, masked keys
+// -1e9, keys past T -inf. real is the tile's real_bits. The training forward and the dq kernel
+// (flash_attention_bwd.cu) call it; the dk/dv kernel forms S^T with the same products, k16 steps
+// and arithmetic, so all three rebuild one P bit for bit.
+template <int D>
+__device__ __forceinline__ void masked_scores(float (&s)[8][4],
+                                              const uint32_t (&qf)[some_mma::Layout<D>::kKSteps][4],
+                                              const __nv_bfloat16* k_tile, int j, uint64_t real,
+                                              int t_len, float scale) {
+  namespace mma = some_mma;
+  mma::score_tile<D>(s, qf, k_tile);
+  if (real == ~0ull) {  // every key real: nothing to mask
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale);
+    return;
+  }
+  const uint32_t is_real = mma::thread_columns(real);
+  const uint32_t below_t = mma::thread_columns(mma::below_t_bits(j * mma::kRows, t_len));
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int bit = 2 * n + (e & 1);
+      s[n][e] = ((is_real >> bit) & 1u) ? __fmul_rn(s[n][e], scale)
+                                        : (((below_t >> bit) & 1u) ? kMaskedScore : -INFINITY);
+    }
+}
 
 }  // namespace some_flash

@@ -27,7 +27,9 @@
 // product, where rounding P to bf16 alone would change the semantics. A key tile is skipped when
 // no key of it shares a segment with a query of the block: its contributions would be multiplied
 // by an alpha that is exactly 0, or are exp(mask value - m) = 0. With and without lse it is one
-// template, so the two outputs stay bit for bit equal.
+// template, so the two outputs stay bit for bit equal. The training forward also stores out_lo,
+// what rounding the output to bf16 left of its f32 value, rounded to bf16: the backward's di =
+// rowsum(O * dO) takes O = out + out_lo, to about 2^-16 (splash_attention_bwd.cu says why).
 #include <type_traits>
 
 #include "attention_mma.cuh"
@@ -173,8 +175,9 @@ template <int D>
 __global__ void __launch_bounds__(some_mma::kThreads)
 splash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
-                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int t_len,
-                      Strides qs, Strides ks, Strides vs_, Strides os) {
+                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                      __nv_bfloat16* __restrict__ out_lo, int t_len, Strides qs, Strides ks,
+                      Strides vs_, Strides os) {
   namespace mma = some_mma;
   using L = mma::Layout<D>;
   using bf16 = __nv_bfloat16;
@@ -264,6 +267,8 @@ splash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     inv_l[i] = 1.0f / l[i];
   }
   mma::store_output<D>(mma::head_slice(out, os), os.t, q0, t_len, o, inv_l);
+  if (out_lo != nullptr)
+    mma::store_output<D, true>(mma::head_slice(out_lo, os), os.t, q0, t_len, o, inv_l);
   if (lse == nullptr || (threadIdx.x & 3) != 0) return;
   const size_t row0 = (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * t_len;
 #pragma unroll
@@ -275,8 +280,8 @@ splash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
-                   float* lse, int batch, int heads, int t_len, Strides qs, Strides ks,
-                   Strides vs_, Strides os, cudaStream_t stream) {
+                   float* lse, void* out_lo, int batch, int heads, int t_len, Strides qs,
+                   Strides ks, Strides vs_, Strides os, cudaStream_t stream) {
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
@@ -285,8 +290,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     // bf16 runs on the tensor cores; f32 stays on the CUDA cores (true f32)
     return some_mma::launch_blocks<D>(splash_fwd_mma_kernel<D>, batch, heads, t_len, stream, qp,
-                                      kp, vp, mp, op, lse, t_len, qs, ks, vs_, os);
+                                      kp, vp, mp, op, lse, static_cast<T*>(out_lo), t_len, qs, ks,
+                                      vs_, os);
   } else {
+    if (out_lo != nullptr) return cudaErrorInvalidValue;  // an f32 output is exact already
     const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
     const cudaError_t err = cudaFuncSetAttribute(
         splash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -304,11 +311,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
 // 1 = bfloat16), the last dimension contiguous, the others given as element strides {batch, head,
 // time}. mask: [batch, t_len] bytes (a frame's segment: 1 real, 0 padding), contiguous, or null
 // for one segment. lse: f32 [batch, heads, t_len] contiguous, or null for the inference forward.
+// out_lo: bf16 only, null or a tensor with out's strides that gets what rounding the output to
+// bf16 left of each value, rounded to bf16 (the backward's di = rowsum((out + out_lo) * dout)).
 // head_dim is 32 or 64. Launches on `stream` and returns cudaGetLastError() (0 on success); it
 // does not synchronise.
 extern "C" int some_splash_attention_fwd(const void* q, const void* k, const void* v,
-                                         const void* mask, void* out, float* lse, int batch,
-                                         int heads, int t_len, int head_dim,
+                                         const void* mask, void* out, float* lse, void* out_lo,
+                                         int batch, int heads, int t_len, int head_dim,
                                          const long long* q_strides, const long long* k_strides,
                                          const long long* v_strides, const long long* o_strides,
                                          int dtype, void* stream) {
@@ -319,14 +328,16 @@ extern "C" int some_splash_attention_fwd(const void* q, const void* k, const voi
   const Strides vs_ = strides_of(v_strides), os = strides_of(o_strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64)
-    return launch<float, 64>(q, k, v, mask, out, lse, batch, heads, t_len, qs, ks, vs_, os, s);
+    return launch<float, 64>(q, k, v, mask, out, lse, out_lo, batch, heads, t_len, qs, ks, vs_, os,
+                             s);
   if (dtype == 0 && head_dim == 32)
-    return launch<float, 32>(q, k, v, mask, out, lse, batch, heads, t_len, qs, ks, vs_, os, s);
+    return launch<float, 32>(q, k, v, mask, out, lse, out_lo, batch, heads, t_len, qs, ks, vs_, os,
+                             s);
   if (dtype == 1 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, mask, out, lse, batch, heads, t_len, qs, ks, vs_,
-                                     os, s);
+    return launch<__nv_bfloat16, 64>(q, k, v, mask, out, lse, out_lo, batch, heads, t_len, qs, ks,
+                                     vs_, os, s);
   if (dtype == 1 && head_dim == 32)
-    return launch<__nv_bfloat16, 32>(q, k, v, mask, out, lse, batch, heads, t_len, qs, ks, vs_,
-                                     os, s);
+    return launch<__nv_bfloat16, 32>(q, k, v, mask, out, lse, out_lo, batch, heads, t_len, qs, ks,
+                                     vs_, os, s);
   return cudaErrorInvalidValue;
 }

@@ -6,7 +6,8 @@
 // :2196) and _flash_attention_dq_kernel (:1307, pallas_call :1635; splash runs it as a kernel of
 // its own, use_fused_bwd_kernel being false). With q pre-scaled, P = exp(score - lse) rebuilt from
 // the forward's f32 log-sum-exp and scores (splash_common.cuh), dO the output's cotangent and
-// di = rowsum(O * dO) (computed by the caller, as JAX computes it in XLA, :2285):
+// di = rowsum(O * dO) (computed by the caller, as JAX computes it in XLA, :2285, but with O the
+// bf16 output plus the rounding residual the training forward stores beside it; below):
 //     dV = round(P)^T dO                 (P rounded to dO's dtype, :1788)
 //     dP = dO V^T,  dS = (dP - di) * P    (f32)
 //     dK = round(dS)^T q,  dQ = round(dS) K   (dS rounded to the input dtype, :1804, :1395)
@@ -15,19 +16,43 @@
 // 0 (exp of the mask value minus a real log-sum-exp underflows), so its dS is exactly 0 and no
 // gradient crosses segments.
 //
+// Why di takes the residual: JAX's di has O rounded to bf16, an error of about 2^-9 that moves
+// every dS = (dP - di) P of the row before dS is rounded to bf16. A rounding that lands on the
+// other side of a bf16 step differs by a whole bf16 ulp of dS, and such flips over the keys of a
+// row took the bf16 dq and dk past 2 ulp + 0.02 RMS of splash's function in f32 (the f32
+// reference of tests/test_torch_kernels_gpu.py). Correcting di afterwards, as K2's dq kernel does
+// (flash_attention_bwd.cu), fixes dk but not dq: the flips have happened (PERF.md). With O to
+// about 2^-16 the flips are rare enough.
+//
 // Bound: operations (the five T x T x D products below against 8 * T * D elements moved per
-// (batch, head)). Like the forward, this first version does its products as f32 FMAs on the CUDA
-// cores (no tensor cores, no TF32), with f32 accumulators.
+// (batch, head)). f32 does its products as f32 FMAs on the CUDA cores (no TF32), with f32
+// accumulators; the bf16 dk/dv kernel runs on the tensor cores (below).
 //
 // Design: the flash backward kernels' (flash_attention_bwd.cu), with the same tiles and no
 // atomics, so two runs give the same bits.
-//   * dkv: a block owns 64 keys of one (batch, head), keeps K^T and V^T in shared memory and its
-//     dK and dV rows in registers, and walks the query tiles, staging Q^T, dO^T and the rows'
-//     (lse, di, segment). Each thread holds 4 keys x 8 queries of the S^T and dP^T tiles.
+//   * dkv: a block owns 64 keys of one (batch, head), keeps its dK and dV rows in registers, and
+//     walks the query tiles. In f32 (splash_bwd_dkv_kernel) K^T and V^T stay in shared memory,
+//     each query tile's Q^T, dO^T and (lse, di, segment) are staged, and each thread holds 4 keys
+//     x 8 queries of the S^T and dP^T tiles. In bf16 (splash_bwd_dkv_mma_kernel) it is the tile of
+//     attention_mma.cuh with the sides swapped, as K2's dk/dv kernel: K and V are A fragments
+//     (warp w owns keys 16 w .. 16 w + 15), the ring carries qs and dO with each query tile's
+//     (lse, di) beside them, and the queries' segments come from the walk's mask bits. S^T =
+//     K qs^T sums the products of the forward's S = qs K^T in the same k16 steps, then
+//     splash_score and P = exp(s - lse); round(P^T) packed in pairs is the A fragment of
+//     dV += P^T dO; dS^T = (dP^T - di) P^T with dP^T = V dO^T in f32, rounded to bf16 once as
+//     splash rounds it, is the A fragment of dK += dS^T qs. A query tile with no query of a
+//     segment the block's keys have adds exactly 0 (P = 0 across segments) and is skipped, as the
+//     forward skips key tiles: real keys never walk padded query tiles, and the reverse.
 //   * dq: a block owns 64 queries, keeps Q^T and dO^T in shared memory and its dQ rows in
-//     registers, and walks the key tiles. Each thread holds 4 queries x 8 keys.
-// A query past T gets lse = +inf, so its P is 0. Inputs are read, and dQ, dK, dV written, through
-// their strides, so all may be [B, H, T, D] views of [B, T, H, D] storage.
+//     registers, and walks the key tiles, on the CUDA cores in both dtypes. Each thread holds 4
+//     queries x 8 keys.
+// In the f32 kernels a query past T gets lse = +inf, in the bf16 one a score of -inf, so its P is
+// 0. Inputs are read, and dQ, dK, dV written, through their strides, so all may be [B, H, T, D]
+// views of [B, T, H, D] storage; the bf16 kernel copies rows with cp.async, so its wrapper raises
+// on rows that are not 16-byte aligned.
+#include <type_traits>
+
+#include "attention_mma.cuh"
 #include "splash_common.cuh"
 
 namespace {
@@ -168,6 +193,127 @@ splash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   }
 }
 
+// The bf16 dk/dv kernel on the tensor cores: splash_bwd_dkv_kernel's function on the tile of
+// attention_mma.cuh with the sides swapped (see the note at the top). Warp w owns keys
+// 16 w .. 16 w + 15 of the block, held as A fragments of K and V; a thread holds keys g and g + 8
+// (lane = 4 g + c) of each S^T and dP^T tile, against queries 8 n + 2 c, 8 n + 2 c + 1.
+template <int D>
+__global__ void __launch_bounds__(some_mma::kThreads)
+splash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                          const float* __restrict__ di, const uint8_t* __restrict__ mask,
+                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                          int t_len, Strides qs, Strides ks, Strides vs_, Strides dos,
+                          Strides dks, Strides dvs) {
+  namespace mma = some_mma;
+  using L = mma::Layout<D>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  const mma::Smem sm = mma::carve_smem_kv<D>(mma_smem, t_len);
+  const int k0 = blockIdx.x * mma::kRows;
+  const uint8_t* mb = mask ? mask + static_cast<size_t>(blockIdx.z) * t_len : nullptr;
+
+  mma::load_tile<D>(sm.q_tile, mma::head_slice(k, ks), ks.t, k0, t_len);
+  mma::load_tile<D>(sm.v_tile, mma::head_slice(v, vs_), vs_.t, k0, t_len);
+  mma::cp_async_commit();
+  // exact skipping: walk the query tiles that hold a query of a segment a key of this block has;
+  // in any other, every (query, key) pair is across segments, P = exp(mask value - lse) is exactly
+  // 0 and so is dS. The block's own tile is always walked.
+  mma::TileFilter filter{nullptr, nullptr, false, true};
+  if (mb != nullptr) {
+    mma::tile_segments(sm, mb, t_len);
+    const uint32_t bit = 1u << (blockIdx.x & 31);
+    filter = mma::TileFilter{sm.seg0, sm.seg1, (sm.seg0[blockIdx.x >> 5] & bit) != 0u,
+                             (sm.seg1[blockIdx.x >> 5] & bit) != 0u};
+  }
+  // the codes of the thread's two keys: the key's segment, or kPastT
+  int code[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + mma::thread_row(i);
+    code[i] = key >= t_len ? kPastT : segment_of(mb, key, t_len);
+  }
+  const bool all_real_keys = code[0] == 1 && code[1] == 1;
+  const size_t row0 = (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * t_len;
+  mma::cp_async_wait_all();
+  __syncthreads();
+  uint32_t kf[L::kKSteps][4], vf[L::kKSteps][4];
+  mma::load_a_fragments<D>(kf, sm.q_tile);
+  mma::load_a_fragments<D>(vf, sm.v_tile);
+
+  // lse and di of a walked query tile go to the ring slot of its Q and dO copies (zeros past T,
+  // where P is set to 0); the query's segment comes from the walk's mask bits
+  float* const lse_ring = sm.row_vals;
+  float* const di_ring = sm.row_vals + 2 * mma::kRows;
+  auto stage_rows = [&](int j, int buf) {
+    const int r = threadIdx.x & (mma::kRows - 1);
+    const int tq = j * mma::kRows + r;
+    const bool valid = tq < t_len;
+    const size_t at = row0 + (valid ? tq : 0);
+    if (threadIdx.x < mma::kRows)
+      mma::cp_async_4(lse_ring + buf * mma::kRows + r, lse + at, valid);
+    else
+      mma::cp_async_4(di_ring + buf * mma::kRows + r, di + at, valid);
+  };
+
+  float o_dk[L::kOutTiles][4] = {}, o_dv[L::kOutTiles][4] = {};
+  const int c = threadIdx.x & 3;
+  mma::walk_tiles<D, true>(
+      sm, filter, mma::head_slice(q, qs), qs.t, mma::head_slice(dout, dos), dos.t, mb, t_len,
+      [&](int j, const bf16* q_tile, const bf16* do_tile, uint64_t real) {
+        const int buf = static_cast<int>(q_tile - sm.k_ring) / L::kTile;
+        float s[8][4], dp[8][4];
+        mma::score_tile<D>(s, kf, q_tile);    // S^T: the warp's 16 keys x the tile's 64 queries
+        mma::score_tile<D>(dp, vf, do_tile);  // dP^T, f32
+        // splash's scores: a query past T or in another segment than the key, and a key past T,
+        // score as splash_score says; nothing to do where every key and query is real
+        if (!(real == ~0ull && all_real_keys)) {
+          const uint32_t segment = mma::thread_columns(real);
+          const uint32_t below_t = mma::thread_columns(mma::below_t_bits(j * mma::kRows, t_len));
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int bit = 2 * n + (e & 1);
+              s[n][e] = ((below_t >> bit) & 1u)
+                            ? splash_score(s[n][e], code[e >> 1],
+                                           static_cast<int>((segment >> bit) & 1u))
+                            : -INFINITY;
+            }
+        }
+        const float* lse_t = lse_ring + buf * mma::kRows;
+        const float* di_t = di_ring + buf * mma::kRows;
+        // 16 queries a step: register 2 hh + i of a fragment holds key i's pair of tile 2 ks + hh
+#pragma unroll
+        for (int kstep = 0; kstep < 4; ++kstep) {
+          uint32_t pf[1][4], sf[1][4];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int n = 2 * kstep + hh, col = 8 * n + 2 * c;
+            const float lse0 = lse_t[col], lse1 = lse_t[col + 1];
+            const float di0 = di_t[col], di1 = di_t[col + 1];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const float p0 = mma::exp_(__fsub_rn(s[n][2 * i], lse0));
+              const float p1 = mma::exp_(__fsub_rn(s[n][2 * i + 1], lse1));
+              pf[0][2 * hh + i] = mma::pack_bf16(__floats2bfloat162_rn(p0, p1));
+              // dS = (dP - di) P in f32, rounded to bf16 once, as splash rounds it
+              sf[0][2 * hh + i] = mma::pack_bf16(__floats2bfloat162_rn(
+                  __fmul_rn(__fsub_rn(dp[n][2 * i], di0), p0),
+                  __fmul_rn(__fsub_rn(dp[n][2 * i + 1], di1), p1)));
+            }
+          }
+          mma::pv_step<D, 1>(o_dv, pf, do_tile, kstep);  // dV += round(P)^T dO
+          mma::pv_step<D, 1>(o_dk, sf, q_tile, kstep);   // dK += round(dS)^T qs
+        }
+      },
+      stage_rows);
+
+  mma::store_output<D>(mma::head_slice(dk, dks), dks.t, k0, t_len, o_dk, {1.0f, 1.0f});
+  mma::store_output<D>(mma::head_slice(dv, dvs), dvs.t, k0, t_len, o_dv, {1.0f, 1.0f});
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 splash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -279,17 +425,30 @@ struct Args {
 
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a) {
-  const int smem = dkv_smem_floats<D>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(splash_bwd_dkv_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.t_len + kBK - 1) / kBK, a.heads, a.batch);
-  splash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.di, static_cast<const uint8_t*>(a.mask),
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.t_len, a.qs, a.ks, a.vs_, a.dos, a.dks,
-      a.dvs);
-  return cudaGetLastError();
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  const uint8_t* mask = static_cast<const uint8_t*>(a.mask);
+  T* dk = static_cast<T*>(a.dk);
+  T* dv = static_cast<T*>(a.dv);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // bf16 runs on the tensor cores; f32 stays on the CUDA cores (true f32)
+    return some_mma::launch_grid(splash_bwd_dkv_mma_kernel<D>,
+                                 some_mma::smem_bytes_kv<D>((a.t_len + kBK - 1) / kBK), a.batch,
+                                 a.heads, a.t_len, a.stream, q, k, v, dout, a.lse, a.di, mask, dk,
+                                 dv, a.t_len, a.qs, a.ks, a.vs_, a.dos, a.dks, a.dvs);
+  } else {
+    const int smem = dkv_smem_floats<D>() * static_cast<int>(sizeof(float));
+    cudaError_t err = cudaFuncSetAttribute(splash_bwd_dkv_kernel<T, D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.t_len + kBK - 1) / kBK, a.heads, a.batch);
+    splash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+        q, k, v, dout, a.lse, a.di, mask, dk, dv, a.t_len, a.qs, a.ks, a.vs_, a.dos, a.dks,
+        a.dvs);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>

@@ -27,18 +27,21 @@ call whose q, k or v needs a gradient goes through
 :class:`FlashAttentionFn` / :class:`SplashAttentionFn`: the training forward
 also stores the row statistics (``*_fwd_res.launches``), and the backward
 runs the dk/dv and dq kernels (``*_bwd_dkv.launches``, ``*_bwd_dq.launches``)
-after ``rowsum(dO * O)`` in plain PyTorch, as JAX computes it in XLA (K2's
-dq kernel corrects it to rowsum(P dP) and runs first). The
+after ``rowsum(dO * O)`` in plain PyTorch, as JAX computes it in XLA. With O
+rounded to bf16 that sum is off by about 2^-9, which took the bf16 gradients
+past the f32 bound: K2's dq kernel corrects it to rowsum(P dP) and runs
+first; K4's training forward stores the output's rounding residual, and
+:func:`splash_di` adds it back before the sum. The
 gradients are written in ``[B, T, H, D]`` storage viewed as ``[B, H, T, D]``,
 the layout of the projections q, k and v are views of, so the transposes
 back cost nothing; the concatenation of dk and dv into the fused kv
 projection's gradient is the one copy, as with any split.
 
-In bf16 K2's inference and training forwards, K2's dk/dv kernel and the
-splash forward run on the tensor cores (``csrc/attention_mma.cuh``), which
-copy 16-byte rows with ``cp.async``: their wrappers raise on a bf16 row that
-is not 16-byte aligned. f32 runs on the CUDA cores in true f32, and so do
-the dq kernels and K4's dk/dv in both dtypes.
+In bf16 K2's inference and training forwards, K2's dk/dv and dq kernels,
+the splash forward and K4's dk/dv kernel run on the tensor cores
+(``csrc/attention_mma.cuh``), which copy 16-byte rows with ``cp.async``:
+their wrappers raise on a bf16 row that is not 16-byte aligned. f32 runs on
+the CUDA cores in true f32, and so does K4's dq kernel in both dtypes.
 
 The two JAX paths differ on padded frames; PERF.md says where that reaches a
 training loss.
@@ -181,6 +184,14 @@ def flash_attention_fwd_res(q, k, v, mask, scale):
     return out, stats
 
 
+def _split_bf16(x: torch.Tensor) -> torch.Tensor:
+    """An f32 tensor as the two bf16 operands the tensor-core kernels take
+    for it, summed back in f32: hi its value cut to bf16, lo the rest
+    rounded (``split_bf16`` in ``csrc/attention_mma.cuh``)."""
+    hi = (x.view(torch.int32) & -65536).view(torch.float32)
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
 def flash_attention_bwd_dkv_plain(q, k, v, dout, stats, delta, mask, scale):
     """dk, dv ``[B, H, T, D]`` with the dk/dv kernel's rounding points, from
     the forward's row statistics ``stats`` (m, l) ``[B, H, T, 2]`` and
@@ -200,10 +211,34 @@ def flash_attention_bwd_dkv_plain(q, k, v, dout, stats, delta, mask, scale):
         ds = ds.masked_fill(~mask[:, None, None, :], 0.0)
     ds = ds * scale
     if q.dtype == torch.bfloat16:
-        hi = (ds.view(torch.int32) & -65536).view(torch.float32)
-        ds = hi + (ds - hi).to(q.dtype).float()
+        ds = _split_bf16(ds)
     dk = torch.matmul(ds.transpose(-1, -2), q.float())
     return dk.to(q.dtype), dv.to(q.dtype)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, dout, stats, delta, mask, scale):
+    """dq ``[B, H, T, D]`` and the corrected delta ``[B, H, T]`` f32 with the
+    dq kernel's rounding points, from the forward's (m, l) and a given
+    ``delta``: P rebuilt as in :func:`flash_attention_bwd_dkv_plain` and kept
+    at the real keys only, dS = P (dP - delta) in f32, r = the row sum of
+    dS, then dq = (dS * scale) K - (r * scale) (round(P) K), the dq of
+    delta + r = rowsum(P dP), and delta + r. In bf16 the kernel takes
+    dS * scale as hi + lo and P rounded to bf16 (identities in f32); this
+    function does the same. An all-masked row gets dq = 0 and its delta."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+    p = torch.exp(s - stats[..., :1]) * (1.0 / stats[..., 1:])
+    if mask is not None:
+        p = p.masked_fill(~mask[:, None, None, :], 0.0)
+    ds = p * (torch.matmul(dout.float(), v.float().transpose(-1, -2)) - delta[..., None])
+    r = ds.sum(-1)
+    ds = ds * scale
+    if q.dtype == torch.bfloat16:
+        ds = _split_bf16(ds)
+    pk = torch.matmul(p.to(q.dtype).float(), k.float())
+    dq = torch.matmul(ds, k.float()) - (r * scale)[..., None] * pk
+    return dq.to(q.dtype), delta + r
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, stats, delta, mask, scale):
@@ -229,6 +264,7 @@ def flash_attention_bwd_dq(q, k, v, dout, stats, delta, mask, scale):
     _build.refuse_grad("flash_attention_bwd_dq", q, k, v, dout)
     B, H, T, D = q.shape
     dq = _bhtd_like(q)
+    _check_rows_aligned("flash_attention_bwd_dq", q, k, v, dout, dq)
     delta_out = torch.empty_like(delta)
     err = _fn("some_flash_attention_bwd_dq", 9, 5)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
@@ -329,29 +365,80 @@ def splash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _splash_forward(qs, k, v, mask, counter):
     """The forward kernel on a pre-scaled q, counted in ``counter.launches``;
-    with the log-sum-exp when ``counter`` is :func:`splash_attention_fwd_res`."""
+    with the log-sum-exp, and in bf16 the output's rounding residual, when
+    ``counter`` is :func:`splash_attention_fwd_res`."""
     _build.refuse_grad(counter.__name__, qs, k, v)
     _check(qs, k, v, mask)
     B, H, T, D = qs.shape
     qs, k, v = (_last_contiguous(t) for t in (qs, k, v))
     out = _bhtd_like(qs)
     _check_rows_aligned(counter.__name__, qs, k, v, out)
-    lse = (torch.empty((B, H, T), dtype=torch.float32, device=qs.device)
-           if counter is splash_attention_fwd_res else None)
-    err = _fn("some_splash_attention_fwd", 6, 4)(
+    training = counter is splash_attention_fwd_res
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=qs.device) if training else None
+    out_lo = _bhtd_like(qs) if training and qs.dtype == torch.bfloat16 else None
+    err = _fn("some_splash_attention_fwd", 7, 4)(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(mask), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, H, T, D, _strides(qs), _strides(k),
-        _strides(v), _strides(out), _DTYPE_CODES[qs.dtype], _stream(qs))
+        None if lse is None else lse.data_ptr(), None if out_lo is None else out_lo.data_ptr(),
+        B, H, T, D, _strides(qs), _strides(k), _strides(v), _strides(out),
+        _DTYPE_CODES[qs.dtype], _stream(qs))
     _build.check(err, counter.__name__)
     counter.launches += 1
-    return out, lse
+    return out, lse, out_lo
 
 
 def splash_attention_fwd_res(qs, k, v, mask):
-    """The training forward kernel: the output and each query row's f32
-    log-sum-exp ``log(l) + m`` ``[B, H, T]``, the residual the backward
-    rebuilds P from."""
+    """The training forward kernel: the output, each query row's f32
+    log-sum-exp ``log(l) + m`` ``[B, H, T]`` (the residual the backward
+    rebuilds P from) and, for bf16 inputs, ``out_lo`` (None in f32): what
+    rounding the output to bf16 left of each f32 value, rounded to bf16, so
+    that :func:`splash_di` takes di from the output to about 2^-16."""
     return _splash_forward(qs, k, v, mask, splash_attention_fwd_res)
+
+
+def splash_di(out, out_lo, dout):
+    """di = rowsum(O * dO) ``[B, H, T]`` in f32, with O = out + out_lo, the
+    f32 output to about 2^-16 (``out_lo`` None: O = out). JAX takes O
+    rounded to bf16 (``splash_attention_kernel.py:2285``); its error, about
+    2^-9, moves dS before splash rounds dS to bf16 and took the bf16 dq and
+    dk past 2 ulp + 0.02 RMS of splash's function in f32 (PERF.md)."""
+    o = out.float() if out_lo is None else out.float() + out_lo.float()
+    return (o * dout.float()).sum(-1).contiguous()
+
+
+def _splash_p_dp(qs, k, v, dout, lse, mask):
+    """Splash's f32 P = exp(score - lse), 0 across segments, and dP = dO V^T
+    in f32, from the forward's log-sum-exp ``[B, H, T]``."""
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    if mask is not None:
+        s = s.masked_fill(~_segment_mask(mask), SPLASH_MASK_VALUE)
+    p = torch.exp(s - lse[..., None])
+    return p, torch.matmul(dout.float(), v.float().transpose(-1, -2))
+
+
+def splash_attention_bwd_dkv_plain(qs, k, v, dout, lse, di, mask, rounding=None):
+    """dk, dv ``[B, H, T, D]`` with splash's rounding points (JAX 0.9.0
+    ``splash_attention_kernel.py``), from the pre-scaled q, the forward's
+    f32 log-sum-exp and ``di`` ``[B, H, T]`` as given: P = exp(score - lse)
+    with f32 scores, dV = round(P)^T dO (:1788), dP = dO V^T in f32,
+    dS = (dP - di) P, dK = round(dS)^T qs (:1804). ``rounding`` is the dtype
+    P and dS are rounded to (qs's by default): bf16 on f32 copies of bf16
+    inputs gives the f32 reference of the bf16 function. Out in qs's dtype."""
+    rounding = rounding or qs.dtype
+    p, dp = _splash_p_dp(qs, k, v, dout, lse, mask)
+    dv = torch.matmul(p.to(rounding).float().transpose(-1, -2), dout.float())
+    ds = ((dp - di[..., None]) * p).to(rounding).float()
+    dk = torch.matmul(ds.transpose(-1, -2), qs.float())
+    return dk.to(qs.dtype), dv.to(qs.dtype)
+
+
+def splash_attention_bwd_dq_plain(qs, k, v, dout, lse, di, mask, rounding=None):
+    """The gradient of the pre-scaled q with splash's rounding points:
+    dQ = round(dS) K (:1395), dS = (dP - di) P as in
+    :func:`splash_attention_bwd_dkv_plain`, di as given. Out in qs's dtype."""
+    rounding = rounding or qs.dtype
+    p, dp = _splash_p_dp(qs, k, v, dout, lse, mask)
+    ds = ((dp - di[..., None]) * p).to(rounding).float()
+    return torch.matmul(ds, k.float()).to(qs.dtype)
 
 
 def splash_attention_bwd_dkv(qs, k, v, dout, lse, di, mask):
@@ -359,6 +446,7 @@ def splash_attention_bwd_dkv(qs, k, v, dout, lse, di, mask):
     _build.refuse_grad("splash_attention_bwd_dkv", qs, k, v, dout)
     B, H, T, D = qs.shape
     dk, dv = _bhtd_like(qs), _bhtd_like(qs)
+    _check_rows_aligned("splash_attention_bwd_dkv", qs, k, v, dout, dk, dv)
     err = _fn("some_splash_attention_bwd_dkv", 9, 6)(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         di.data_ptr(), _mask_ptr(mask), dk.data_ptr(), dv.data_ptr(), B, H, T, D,
@@ -384,12 +472,12 @@ def splash_attention_bwd_dq(qs, k, v, dout, lse, di, mask):
     return dq
 
 
-def splash_attention_backward(qs, k, v, out, dout, lse, mask):
-    """dqs, dk, dv on the card: ``di = rowsum(O * dO)`` in f32 plain PyTorch
-    (JAX computes it in XLA), then the dk/dv kernel and the dq kernel."""
+def splash_attention_backward(qs, k, v, out, out_lo, dout, lse, mask):
+    """dqs, dk, dv on the card: di from the forward's output and its
+    residual (:func:`splash_di`), then the dk/dv kernel and the dq kernel."""
     _check(qs, k, v, mask)
     qs, k, v, dout = (_last_contiguous(t) for t in (qs, k, v, dout))
-    di = (out.float() * dout.float()).sum(-1).contiguous()
+    di = splash_di(out, out_lo, dout)
     dk, dv = splash_attention_bwd_dkv(qs, k, v, dout, lse, di, mask)
     dq = splash_attention_bwd_dq(qs, k, v, dout, lse, di, mask)
     return dq, dk, dv
@@ -397,18 +485,19 @@ def splash_attention_backward(qs, k, v, out, dout, lse, mask):
 
 class SplashAttentionFn(torch.autograd.Function):
     """The splash kernels as one differentiable op on the pre-scaled q;
-    saves qs, k, v, the output, the log-sum-exp and the mask."""
+    saves qs, k, v, the output and its residual, the log-sum-exp and the
+    mask."""
 
     @staticmethod
     def forward(ctx, qs, k, v, mask):
-        out, lse = splash_attention_fwd_res(qs, k, v, mask)
-        ctx.save_for_backward(qs, k, v, out, lse, mask)
+        out, lse, out_lo = splash_attention_fwd_res(qs, k, v, mask)
+        ctx.save_for_backward(qs, k, v, out, out_lo, lse, mask)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        qs, k, v, out, lse, mask = ctx.saved_tensors
-        dq, dk, dv = splash_attention_backward(qs, k, v, out, dout, lse, mask)
+        qs, k, v, out, out_lo, lse, mask = ctx.saved_tensors
+        dq, dk, dv = splash_attention_backward(qs, k, v, out, out_lo, dout, lse, mask)
         return dq, dk, dv, None
 
 

@@ -14,7 +14,7 @@ import torch
 from some_tpu.ops.attention import _xla_attention
 from some_tpu_torch.ops.attention import (
     NEG_INF, attention_bhtd, attention_plain, flash_attention, flash_attention_bwd_dkv_plain,
-    splash_attention, splash_attention_plain,
+    flash_attention_bwd_dq_plain, splash_attention, splash_attention_plain,
 )
 
 
@@ -92,6 +92,43 @@ def test_plain_dkv_matches_jax_vjp(B, H, T, D):
         np.testing.assert_allclose(got, want, atol=tol, rtol=0)
     # the batch-padding row and a real row's padded keys get no dk
     assert not dk[-1].any() and not dk[0, :, T * 2 // 3:].any()
+
+
+@pytest.mark.parametrize("B,H,T,D", [(3, 2, 37, 32), (2, 4, 130, 64), (3, 1, 77, 64)])
+def test_plain_dq_matches_jax_vjp(B, H, T, D):
+    """The dq kernel's plain version, from the row statistics (m, l) of a
+    plain f32 forward and delta = rowsum(dO * O), against ``jax.vjp`` of
+    ``_xla_attention`` in f32: within 1e-5 x the RMS of JAX's gradient. Its
+    second output, delta corrected by the row sum of dS, is rowsum(P dP) over
+    the real keys within 1e-5 of its RMS; the batch-padding row gets dq = 0
+    and keeps its delta."""
+    import jax
+
+    q, k, v, mask = _inputs(B, H, T, D, seed=T + 9)
+    do = np.random.default_rng(T + 10).standard_normal(q.shape).astype(np.float32)
+    scale = D ** -0.5
+    _, vjp = jax.vjp(lambda q, k, v: _xla_attention(q, k, v, jnp.asarray(mask), scale),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = np.asarray(vjp(jnp.asarray(do))[0])
+
+    tq, tk, tv, tdo = (_bhtd(a) for a in (q, k, v, do))
+    tmask = torch.from_numpy(mask)
+    s = (torch.matmul(tq, tk.transpose(-1, -2)) * scale).masked_fill(
+        ~tmask[:, None, None, :], NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    stats = torch.cat([m, torch.exp(s - m).sum(dim=-1, keepdim=True)], dim=-1)
+    delta = (tdo * attention_plain(tq, tk, tv, tmask, scale)).sum(-1)
+    dq, delta_out = flash_attention_bwd_dq_plain(tq, tk, tv, tdo, stats, delta, tmask, scale)
+    got = dq.transpose(1, 2).numpy()
+    rms = np.sqrt(np.mean(want ** 2))
+    print(f"parity flash dq plain f32: max|d| / RMS {np.abs(got - want).max() / rms:.3g}")
+    np.testing.assert_allclose(got, want, atol=1e-5 * rms, rtol=0)
+    p = torch.softmax(s.double().masked_fill(~tmask[:, None, None, :], float("-inf")), dim=-1)
+    rowsum = (p * torch.matmul(tdo.double(), tv.double().transpose(-1, -2))).sum(-1)
+    real = tmask.any(dim=1)
+    err = (delta_out[real].double() - rowsum[real]).abs().max()
+    assert err <= 1e-5 * rowsum[real].pow(2).mean().sqrt(), float(err)
+    assert not dq[~real].any() and torch.equal(delta_out[~real], delta[~real])
 
 
 def test_impl_dispatch():

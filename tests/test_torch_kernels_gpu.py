@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from chip_smoke import (
-    BF16_PLAIN_HELD, fused_ffn_tolerance, grad_tolerance, splash_forward_tolerance,
+    BF16_PLAIN_HELD, fused_ffn_tolerance, grad_tolerance, splash_f32_reference,
+    splash_flip_allowance, splash_forward_tolerance,
 )
 from some_tpu_torch.ops import attention as A
 from some_tpu_torch.ops import depthwise as W
@@ -111,9 +112,9 @@ K2_BACKWARD = [pytest.param(*point, dtype, id="-".join(map(str, point)) + f"-{st
                for point in GRID for dtype in DTYPES]
 
 
-def _ratio(got, want, rel):
-    """max |got - want| / grad_tolerance(want, rel)."""
-    tol = grad_tolerance(torch, want, rel, got.dtype)
+def _ratio(got, want, rel, extra=0.0):
+    """max |got - want| / (grad_tolerance(want, rel) + extra)."""
+    tol = grad_tolerance(torch, want, rel, got.dtype) + extra
     return float(((got.float() - want.float()).abs() / tol).max())
 
 
@@ -220,6 +221,48 @@ def test_bf16_backward_meets_the_f32_bound_over_many_draws(cuda, T, D):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("T,D", [(77, 64), (200, 64), (77, 32)])
+def test_splash_bf16_backward_meets_the_f32_bound_over_many_draws(cuda, T, D):
+    """K4's bf16 dqs (the gradient of the pre-scaled q), dk and dv, from the
+    training forward's residuals and the backward as SplashAttentionFn runs
+    it, over 300 draws a shape made as the K2 test above makes them (row 0
+    padded from 0.7 T, the last row all padding), within 2 ulp + 0.02 RMS of
+    chip_smoke's splash_f32_reference: splash's function in f32 on the bf16
+    inputs, with its roundings of P and dS to bf16 kept and di = rowsum(P dP)
+    in f32. The bound allows for f32 sums in another order and the P or dS
+    that lands on the other side of a bf16 rounding. Prints the largest
+    |d|/tol and the draws past 1 against that reference, against the
+    unrounded f32 gradient and against the plain bf16 autograd; only the
+    first is held."""
+    B, H, draws = 3, 2, 300
+    names, refs = ("dq", "dk", "dv"), ("f32 reference", "unrounded f32", "plain bf16")
+    ratios = {ref: torch.zeros(draws, 3) for ref in refs}
+    for i in range(draws):
+        gen = torch.Generator(device=cuda).manual_seed(i)
+        q, k, v, do = (torch.randn((B, T, H, D), generator=gen, device=cuda)
+                       .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
+        mask = torch.ones((B, T), dtype=torch.bool, device=cuda)
+        mask[0, int(T * 0.7):] = False
+        mask[B - 1] = False
+        qs = A.prescale(q, D ** -0.5)
+        out, lse, out_lo = A.splash_attention_fwd_res(qs, k, v, mask)
+        got = A.splash_attention_backward(qs, k, v, out, out_lo, do, lse, mask)
+        wants = {"f32 reference": splash_f32_reference(torch, qs, k, v, do, mask)}
+        for ref, dtype in (("unrounded f32", torch.float32), ("plain bf16", torch.bfloat16)):
+            leaves = [t.detach().to(dtype).requires_grad_() for t in (qs, k, v)]
+            wants[ref] = torch.autograd.grad(A.splash_attention_plain(*leaves, mask, 1.0),
+                                             leaves, do.to(dtype))
+        for ref in refs:
+            ratios[ref][i] = torch.tensor([_ratio(g, w, 0.02) for g, w in zip(got, wants[ref])])
+    print(f"K4 bf16 backward (3, 2, {T}, {D}) over {draws} draws, max |d|/tol (draws past 1): "
+          + "; ".join(ref + " " + ", ".join(
+              f"{n} {r[:, j].max():.4f} ({int((r[:, j] > 1).sum())})"
+              for j, n in enumerate(names)) for ref, r in ratios.items()))
+    held = ratios["f32 reference"]
+    assert float(held.max()) <= 1.0, {n: float(held[:, j].max()) for j, n in enumerate(names)}
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,H,T,D,dtype", K2_BACKWARD)
 def test_dq_kernel_returns_the_rowsum_of_p_dp(cuda, B, H, T, D, dtype):
     """The dq kernel's second output is delta = rowsum(P dP) over the real
@@ -268,6 +311,74 @@ def test_dkv_kernel_matches_its_plain_version(cuda, B, H, T, D, dtype):
     ratios = [_ratio(g, w, rel) for g, w in zip(got, want)]
     print(f"K2 dk/dv kernel vs plain {(B, H, T, D)} {str(dtype)[6:]} |d|/tol (dk, dv): {ratios}")
     assert max(ratios) <= 1.0, ratios
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,T,D,dtype", K2_BACKWARD)
+def test_dq_kernel_matches_its_plain_version(cuda, B, H, T, D, dtype):
+    """The dq kernel against flash_attention_bwd_dq_plain, which rounds where
+    the kernel rounds (dS * scale as hi + lo, round(P) in the correction
+    sum P K), on the training forward's statistics and the caller's delta:
+    dq within 2 ulp + 0.002 RMS in bf16 and 2e-5 RMS in f32, as the dk/dv
+    kernel; its corrected delta within 1e-5 of its RMS (f32 sums in another
+    order). A second run gives the same bits (no atomics)."""
+    q, k, v, do, mask = _attention_inputs(B, H, T, D, dtype, cuda, seed=T + 11)
+    scale = D ** -0.5
+    out, stats = A.flash_attention_fwd_res(q, k, v, mask, scale)
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    dq, delta_out = A.flash_attention_bwd_dq(q, k, v, do, stats, delta, mask, scale)
+    want, want_delta = A.flash_attention_bwd_dq_plain(q, k, v, do, stats, delta, mask, scale)
+    again = A.flash_attention_bwd_dq(q, k, v, do, stats, delta, mask, scale)
+    torch.cuda.synchronize()
+    ratio = _ratio(dq, want, 0.002 if dtype == torch.bfloat16 else 2e-5)
+    delta_err = float((delta_out - want_delta).abs().max() / want_delta.pow(2).mean().sqrt())
+    print(f"K2 dq kernel vs plain {(B, H, T, D)} {str(dtype)[6:]}: dq |d|/tol {ratio:.4f}, "
+          f"delta max |d| / RMS {delta_err:.3g}")
+    assert ratio <= 1.0 and delta_err <= 1e-5, (ratio, delta_err)
+    assert torch.equal(again[0], dq) and torch.equal(again[1], delta_out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,T,D,dtype", K2_BACKWARD)
+def test_splash_backward_kernels_match_their_plain_versions(cuda, B, H, T, D, dtype):
+    """K4's backward on the training forward's residuals: di from the output
+    and its bf16 rounding residual (splash_di) is rowsum(P dP) within 1e-4
+    of its RMS against f64 (from the bf16 output alone it is about 2e-3
+    off, printed); the dq and dk/dv kernels on that di against
+    splash_attention_bwd_dq_plain and splash_attention_bwd_dkv_plain, which
+    round P and dS where splash rounds them: 2 ulp + 0.002 RMS in bf16,
+    2e-5 RMS in f32. The bf16 dk and dv may also differ by one rounding
+    flip of a dS or a P (chip_smoke's splash_flip_allowance): without it dk
+    read 2.2356 at (3, 2, 1000, 32) on an H100. A second run of dk/dv gives
+    the same bits."""
+    q, k, v, do, mask = _attention_inputs(B, H, T, D, dtype, cuda, seed=T + 13)
+    qs = A.prescale(q, D ** -0.5)
+    out, lse, out_lo = A.splash_attention_fwd_res(qs, k, v, mask)
+    assert (out_lo is None) == (dtype == torch.float32)
+    di = A.splash_di(out, out_lo, do)
+    dq = A.splash_attention_bwd_dq(qs, k, v, do, lse, di, mask)
+    dkv = A.splash_attention_bwd_dkv(qs, k, v, do, lse, di, mask)
+    again = A.splash_attention_bwd_dkv(qs, k, v, do, lse, di, mask)
+    torch.cuda.synchronize()
+    s = (qs.double() @ k.double().transpose(-1, -2)).masked_fill(~A._segment_mask(mask),
+                                                                 float("-inf"))
+    want_di = (torch.softmax(s, dim=-1) * (do.double() @ v.double().transpose(-1, -2))).sum(-1)
+    rms_di = want_di.pow(2).mean().sqrt()
+    di_err = float((di.double() - want_di).abs().max() / rms_di)
+    rounded_err = float((A.splash_di(out, None, do).double() - want_di).abs().max() / rms_di)
+    bf16 = dtype == torch.bfloat16
+    rel = 0.002 if bf16 else 2e-5
+    flips = (0.0, *splash_flip_allowance(torch, qs, k, v, do, lse, di, mask)) if bf16 else (
+        0.0, 0.0, 0.0)
+    wants = (A.splash_attention_bwd_dq_plain(qs, k, v, do, lse, di, mask),
+             *A.splash_attention_bwd_dkv_plain(qs, k, v, do, lse, di, mask))
+    ratios = [_ratio(g, w, rel, extra) for g, w, extra in zip((dq, *dkv), wants, flips)]
+    print(f"K4 backward kernels vs plain {(B, H, T, D)} {str(dtype)[6:]}: di max |d| / RMS "
+          f"{di_err:.3g} (from the output alone {rounded_err:.3g}); |d|/tol (dq, dk, dv) "
+          f"{[f'{r:.3g}' for r in ratios]}, without the flip allowance "
+          f"{[f'{_ratio(g, w, rel):.3g}' for g, w in zip((dq, *dkv), wants)]}")
+    assert di_err <= 1e-4 and max(ratios) <= 1.0, (di_err, ratios)
+    assert all(torch.equal(a, b) for a, b in zip(again, dkv))
 
 
 @pytest.mark.gpu
@@ -384,6 +495,41 @@ def test_flash_inference_and_dkv_skip_masked_tiles_bit_for_bit(cuda, D):
 
 
 @pytest.mark.gpu
+@HEAD_DIMS
+def test_dq_and_splash_dkv_skip_tiles_bit_for_bit(cuda, D):
+    """Row 0's real frames end at a 64-frame tile edge. The bf16 K2 dq kernel
+    walks only key tiles with a real key, so row 0's dq and corrected delta
+    equal, on every query row of the cut length, the same call on the inputs
+    cut there. The bf16 K4 dk/dv kernel walks only query tiles with a query
+    of a segment its keys have, so row 0's real keys get dk and dv equal to
+    the cut call's (lse and di as the full call's forward and dq kernel gave
+    them, cut)."""
+    q, k, v, mask = _cut_inputs(D, cuda)
+    L, scale = 128, D ** -0.5
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(D + 1),
+                     device=cuda).to(torch.bfloat16).transpose(1, 2).contiguous().transpose(1, 2)
+    cut = lambda t: t[:, :, :L]
+    mask_cut = mask[:, :L].contiguous()
+    out, stats = A.flash_attention_fwd_res(q, k, v, mask, scale)
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    full = A.flash_attention_bwd_dq(q, k, v, do, stats, delta, mask, scale)
+    short = A.flash_attention_bwd_dq(cut(q), cut(k), cut(v), cut(do), cut(stats).contiguous(),
+                                     cut(delta).contiguous(), mask_cut, scale)
+    qs = A.prescale(q, scale)
+    out, lse, out_lo = A.splash_attention_fwd_res(qs, k, v, mask)
+    di = A.splash_di(out, out_lo, do)
+    splash_full = A.splash_attention_bwd_dkv(qs, k, v, do, lse, di, mask)
+    splash_short = A.splash_attention_bwd_dkv(cut(qs), cut(k), cut(v), cut(do),
+                                              cut(lse).contiguous(), cut(di).contiguous(),
+                                              mask_cut)
+    torch.cuda.synchronize()
+    for a, b in zip(full, short):
+        assert torch.equal(a[0, :, :L], b[0])
+    for a, b in zip(splash_full, splash_short):
+        assert a[0, :, :L].abs().sum() > 0 and torch.equal(a[0, :, :L], b[0])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("T,D", [(64, 64), (50, 64), (32, 32)])
 def test_dkv_rebuilds_the_forwards_p_bit_for_bit(cuda, T, D):
     """With V the identity the bf16 training forward's output is the P it
@@ -418,14 +564,15 @@ def test_splash_fwd_skips_other_segment_tiles_bit_for_bit(cuda, D):
     q, k, v, mask = _cut_inputs(D, cuda)
     L = 128
     qs = A.prescale(q, D ** -0.5)
-    out, lse = A.splash_attention_fwd_res(qs, k, v, mask)
-    cut_out, cut_lse = A.splash_attention_fwd_res(qs[:, :, :L], k[:, :, :L], v[:, :, :L],
-                                                  mask[:, :L].contiguous())
+    out, lse, lo = A.splash_attention_fwd_res(qs, k, v, mask)
+    cut_out, cut_lse, cut_lo = A.splash_attention_fwd_res(qs[:, :, :L], k[:, :, :L],
+                                                          v[:, :, :L], mask[:, :L].contiguous())
     with torch.no_grad():
         inference = A.splash_attention(q, k, v, mask, D ** -0.5)
     torch.cuda.synchronize()
     assert torch.equal(out[0, :, :L], cut_out[0])
     assert torch.equal(lse[0, :, :L], cut_lse[0])
+    assert torch.equal(lo[0, :, :L], cut_lo[0])
     assert torch.equal(inference, out)
 
 
@@ -442,7 +589,7 @@ def test_splash_fwd_keeps_p_f32(cuda, D):
     qs = A.prescale(q, D ** -0.5)
     with torch.no_grad():
         out = A.splash_attention(q, k, v, mask, D ** -0.5)
-    out_res, _ = A.splash_attention_fwd_res(qs, k, v, mask)
+    out_res, _, _ = A.splash_attention_fwd_res(qs, k, v, mask)
     torch.cuda.synchronize()
     assert torch.equal(out, torch.ones_like(out))
     assert torch.equal(out_res, out)
@@ -470,11 +617,12 @@ def _kernel_names(fn):
 def test_forward_kernels_route_by_dtype(cuda, dtype):
     """bf16 inputs reach the tensor-core kernels and nothing else; f32 inputs
     the CUDA-core kernels (true f32): K2's inference and training forwards,
-    K2's dk/dv kernel and K4's forward."""
+    K2's dk/dv and dq kernels, K4's forward and K4's dk/dv kernel."""
     q, k, v, do, mask = _attention_inputs(2, 2, 130, 64, dtype, cuda, seed=9)
     bf16 = dtype == torch.bfloat16
     counts = (A.flash_attention.launches, A.flash_attention_fwd_res.launches,
-              A.flash_attention_bwd_dkv.launches, A.splash_attention_fwd_res.launches)
+              A.flash_attention_bwd_dkv.launches, A.splash_attention_fwd_res.launches,
+              A.flash_attention_bwd_dq.launches, A.splash_attention_bwd_dkv.launches)
 
     def only(fn, key):
         names = [n for n in _kernel_names(fn) if key in n]
@@ -488,10 +636,16 @@ def test_forward_kernels_route_by_dtype(cuda, dtype):
     delta = (do.float() * out.float()).sum(-1).contiguous()
     dkv = only(lambda: A.flash_attention_bwd_dkv(q, k, v, do, stats, delta, mask, 0.125),
                "flash_bwd")
+    dq = only(lambda: A.flash_attention_bwd_dq(q, k, v, do, stats, delta, mask, 0.125),
+              "flash_bwd")
     splash = only(lambda: A.splash_attention_fwd_res(q, k, v, mask), "splash_fwd")
+    lse = A.splash_attention_fwd_res(q, k, v, mask)[1]
+    splash_dkv = only(lambda: A.splash_attention_bwd_dkv(q, k, v, do, lse, delta, mask),
+                      "splash_bwd")
     assert (A.flash_attention.launches, A.flash_attention_fwd_res.launches,
-            A.flash_attention_bwd_dkv.launches, A.splash_attention_fwd_res.launches) == (
-        counts[0] + 1, counts[1] + 2, counts[2] + 1, counts[3] + 1)
+            A.flash_attention_bwd_dkv.launches, A.splash_attention_fwd_res.launches,
+            A.flash_attention_bwd_dq.launches, A.splash_attention_bwd_dkv.launches) == (
+        counts[0] + 1, counts[1] + 2, counts[2] + 1, counts[3] + 2, counts[4] + 1, counts[5] + 1)
     assert ("flash_fwd_mma_kernel" in inference) == bf16, inference
     assert ("flash_fwd_kernel" in inference) == (not bf16), inference
     assert ("flash_fwd_stats_mma_kernel" in flash) == bf16, flash
@@ -499,6 +653,9 @@ def test_forward_kernels_route_by_dtype(cuda, dtype):
     assert ("flash_bwd_dkv_mma_kernel" in dkv) == bf16, dkv
     assert "flash_bwd_dkv" in dkv, dkv
     assert ("splash_fwd_mma_kernel" in splash) == bf16, splash
+    assert ("flash_bwd_dq_mma_kernel" in dq) == bf16 and "flash_bwd_dq" in dq, dq
+    assert ("splash_bwd_dkv_mma_kernel" in splash_dkv) == bf16, splash_dkv
+    assert "splash_bwd_dkv" in splash_dkv, splash_dkv
 
 
 def test_bf16_forward_refuses_misaligned_rows():
@@ -517,3 +674,20 @@ def test_bf16_forward_refuses_misaligned_rows():
             A.splash_attention_fwd_res(ok, ok, bad, None)
         with torch.no_grad(), pytest.raises(ValueError, match="16-byte"):
             A._splash_forward(ok, bad, ok, None, A.splash_attention)
+
+
+def test_bf16_backward_refuses_misaligned_rows():
+    """The bf16 K2 dq and K4 dk/dv kernels copy 16-byte rows with cp.async as
+    the forwards do: a misaligned bf16 row raises before any launch."""
+    storage = torch.zeros(2 * 2 * 16 * 32 + 1, dtype=torch.bfloat16)
+    shifted = storage[1:].view(2, 2, 16, 32)
+    wide = torch.zeros(2, 2, 16, 36, dtype=torch.bfloat16)[..., :32]
+    ok = torch.zeros(2, 2, 16, 32, dtype=torch.bfloat16)
+    stats, rows = torch.ones(2, 2, 16, 2), torch.zeros(2, 2, 16)
+    for bad in (shifted, wide):
+        with pytest.raises(ValueError, match="16-byte"):
+            A.flash_attention_bwd_dq(ok, ok, ok, bad, stats, rows, None, 0.1)
+        with pytest.raises(ValueError, match="16-byte"):
+            A.flash_attention_bwd_dkv(bad, ok, ok, ok, stats, rows, None, 0.1)
+        with pytest.raises(ValueError, match="16-byte"):
+            A.splash_attention_bwd_dkv(ok, bad, ok, ok, rows, rows, None)

@@ -29,7 +29,10 @@ from some_tpu.training.me_task import MIDIExtractionTask as JaxTask
 from some_tpu_torch.compat.from_jax import jax_params_to_state_dict, load_jax_variables
 from some_tpu_torch.inference.me_infer import MIDIExtractionInference
 from some_tpu_torch.nn.model import build_midi_extractor
-from some_tpu_torch.ops.attention import attention_plain, splash_attention_plain
+from some_tpu_torch.ops.attention import (
+    SPLASH_MASK_VALUE, attention_plain, prescale, splash_attention_bwd_dkv_plain,
+    splash_attention_bwd_dq_plain, splash_attention_plain,
+)
 from some_tpu_torch.training.me_task import MIDIExtractionTask
 from tests.test_prod_parity import make_song
 from tests.test_torch_infer import CONFIG, songs, variables  # noqa: F401 (fixtures)
@@ -118,6 +121,51 @@ def test_plain_matches_splash_and_its_vjp(B, H, T, D, masked, dtype):
         else:
             tol = grad_tolerance(torch, w.to(tdt), 0.1)
         assert ((got.float() - w).abs() <= tol).all(), (name, float((got.float() - w).abs().max()))
+
+
+@pytest.mark.parametrize("B,H,T,D", [(2, 2, 256, 64), (3, 2, 128, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_backward_matches_splash_vjp(B, H, T, D, dtype):
+    """splash_attention_bwd_dq_plain and splash_attention_bwd_dkv_plain, the
+    yardsticks of K4's backward kernels, against ``jax.vjp`` of
+    ``_splash_attention_bhtd``: the same pre-scaled q, the log-sum-exp of the
+    f32 scores, and di = rowsum(O * dO) in f32 from JAX's own output, as
+    splash takes it (``splash_attention_kernel.py:2285``); dq through the
+    pre-scale as JAX's autograd carries it. Both round P and dS where splash
+    rounds them, so f32 within 1e-5 x RMS(want); bf16 within 2 bf16 ulp of
+    |want| + 0.004 RMS(want), for f32 sums in another order and the P or dS
+    that a one-ulp lse lands on the other side of a bf16 rounding."""
+    q, k, v, g, mask = _inputs(B, H, T, D, seed=T + D + 1)
+    scale = D ** -0.5
+    jdt = getattr(jnp, dtype)
+    jq, jk, jv, jg = (jnp.asarray(a, jdt) for a in (q, k, v, g))
+    jmask = jnp.asarray(mask)
+    out, vjp = jax.vjp(jax.jit(lambda a, b, c: jax_attention._splash_attention_bhtd(
+        a, b, c, jmask, scale)), jq, jk, jv)
+    wants = vjp(jg)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tg = (torch.from_numpy(np.array(a, np.float32)).to(tdt) for a in (jq, jk, jv, jg))
+    tmask = torch.from_numpy(mask)
+    qs = prescale(tq, scale)
+    same = (tmask[:, :, None] == tmask[:, None, :])[:, None]
+    lse = torch.logsumexp((qs.float() @ tk.float().transpose(-1, -2)).masked_fill(
+        ~same, SPLASH_MASK_VALUE), dim=-1)
+    di = (torch.from_numpy(np.array(out, np.float32)) * tg.float()).sum(-1)
+    dqs = splash_attention_bwd_dq_plain(qs, tk, tv, tg, lse, di, tmask)
+    dk, dv = splash_attention_bwd_dkv_plain(qs, tk, tv, tg, lse, di, tmask)
+    dq = dqs * float(torch.tensor(scale, dtype=tdt))
+    for name, got, w in zip("qkv", (dq, dk, dv), wants):
+        assert got.dtype == tdt
+        w = torch.from_numpy(np.array(w, np.float32))
+        rms = float(w.pow(2).mean().sqrt())
+        d = (got.float() - w).abs()
+        if dtype == "float32":
+            tol = 1e-5 * rms
+        else:
+            tol = 2 * bf16_ulp(torch, w) + 0.004 * rms
+        print(f"splash backward plain vs JAX vjp {dtype} [{B},{H},{T},{D}] d{name}: max|d| / RMS "
+              f"{float(d.max()) / rms:.3g}, max |d|/tol {float((d / tol).max()):.3f}")
+        assert (d <= tol).all(), (name, float((d / tol).max()))
 
 
 def test_segment_ids_differ_from_xla_attention_on_padding_only():
