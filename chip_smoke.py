@@ -9,14 +9,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles every kernel under some_tpu_torch/csrc with nvcc, all
      sources at once, and prints each one's registers and spills; counts
-     the tensor-core instructions (HMMA) of the bf16 kernels that run on
-     the tensor cores, in the SASS of the built libraries (cuobjdump), and
-     raises if one has none;
+     the tensor-core instructions (HMMA, HGMMA) of the bf16 kernels that
+     run on the tensor cores, in the SASS of the built libraries
+     (cuobjdump), and raises if one has none;
   3. every kernel against its plain version on the card, with its times:
      K1 (depthwise conv) forward, dx, dw; K2 (flash attention) forward,
      forward with statistics, dk/dv, dq; K3 (fused LN -> FFN -> residual);
      K4 (splash attention) forward, forward with log-sum-exp, dk/dv, dq;
-     for the tensor-core kernels, the time against SDPA and the bound;
+     for the tensor-core kernels, the time against SDPA (K3: the unfused
+     eager chain) and the bound;
   4. the infer path: ``some_tpu_torch.infer`` at production geometry
      (configs/midi_conformer.yaml: 8 dual-stream layers, dim 512, 8 x 64
      heads, k=31), random weights from a seed, on synthetic songs, in bf16
@@ -68,13 +69,33 @@ def median_ms(torch, fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def back_to_back_ms(torch, fn, calls=36, reps=5):
+    """CUDA-event median over ``reps`` runs of ``calls`` calls of ``fn`` in a
+    row, divided by ``calls``, in ms: the steady state of a forward that
+    makes the same call many times, where the host prepares the next call
+    while the card runs this one."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def bound(nbytes, flops, peak_flops):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / peak_flops * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-# The bf16 kernels on the tensor cores (attention_mma.cuh): (library, kernel name, wrapper)
+# The bf16 kernels on the tensor cores (mma.sync on attention_mma.cuh's tile; K3 wgmma):
+# (library, kernel name, wrapper)
 TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_mma_kernel", "flash_attention"),
                        ("flash_attention", "flash_fwd_stats_mma_kernel", "flash_attention_fwd_res"),
                        ("flash_attention_bwd", "flash_bwd_dkv_mma_kernel",
@@ -83,13 +104,17 @@ TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_mma_kernel", "flash_attent
                        ("splash_attention", "splash_fwd_mma_kernel", "splash_attention"),
                        ("splash_attention", "splash_fwd_mma_kernel", "splash_attention_fwd_res"),
                        ("splash_attention_bwd", "splash_bwd_dkv_mma_kernel",
-                        "splash_attention_bwd_dkv"))
+                        "splash_attention_bwd_dkv"),
+                       ("splash_attention_bwd", "splash_bwd_dq_mma_kernel",
+                        "splash_attention_bwd_dq"),
+                       ("fused_ffn", "fused_ffn_mma_kernel", "fused_ln_ffn_residual"))
 
 
 def hmma_counts(libs, nvcc: str):
-    """HMMA instructions per kernel variant in the SASS of the libraries that
-    hold a tensor-core kernel (``cuobjdump -sass``), keyed by mangled name;
-    the CUDA-core kernels beside them count 0. Raises if a tensor-core kernel
+    """Tensor-core instructions per kernel variant in the SASS of the
+    libraries that hold a tensor-core kernel (``cuobjdump -sass``): HMMA
+    (mma.sync) and HGMMA (wgmma, K3's), keyed by mangled name; the
+    CUDA-core kernels beside them count 0. Raises if a tensor-core kernel
     has none."""
     cuobjdump = str(pathlib.Path(nvcc).parent / "cuobjdump")
     counts = {}
@@ -97,11 +122,12 @@ def hmma_counts(libs, nvcc: str):
         sass = subprocess.run([cuobjdump, "-sass", str(libs[lib])], capture_output=True,
                               text=True, check=True).stdout
         for block in sass.split("Function : ")[1:]:
-            counts[block.split()[0]] = sum("HMMA" in line for line in block.splitlines())
+            counts[block.split()[0]] = sum("HMMA" in line or "HGMMA" in line
+                                           for line in block.splitlines())
     for _, kernel, _ in TENSOR_CORE_KERNELS:
         found = {n: c for n, c in counts.items() if kernel in n}
         if not found or min(found.values()) == 0:
-            raise AssertionError(f"{kernel}: no HMMA instruction in its SASS ({found})")
+            raise AssertionError(f"{kernel}: no tensor-core instruction in its SASS ({found})")
     return counts
 
 
@@ -718,16 +744,20 @@ def fused_ffn_tolerance(torch, want):
 def check_fused_ffn(torch):
     """K3 against its plain version at the inference shapes, with the time of
     the unfused eager chain it replaces (LayerNorm, Linear, SiLU, Linear,
-    residual; cuBLAS, no TF32) as ``eager_chain_ms``. No single PyTorch call
-    computes K3's function, so its ``library_ms`` is None."""
+    residual: five PyTorch calls; cuBLAS, no TF32) as ``eager_chain_ms``. No
+    single PyTorch call computes K3's function, so its ``library_ms`` is
+    None. The weights are f32 [D, H] and [H, D] views of [out, in] storage,
+    as the model passes its Linear weights; the kernel, its plain version and
+    the chain are timed on the same weights in x's dtype, so none of the
+    three times a cast of the weights."""
     import torch.nn.functional as F
     from some_tpu_torch.ops.fused_ffn import fused_ln_ffn_residual, fused_ln_ffn_residual_plain
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     D, H = 512, 2048
     randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
-    weights = [1.0 + 0.1 * randn(D), 0.1 * randn(D), randn(D, H) * D ** -0.5, 0.1 * randn(H),
-               randn(H, D) * H ** -0.5, 0.1 * randn(D)]
+    weights = [1.0 + 0.1 * randn(D), 0.1 * randn(D), (randn(H, D) * D ** -0.5).t(),
+               0.1 * randn(H), (randn(D, H) * H ** -0.5).t(), 0.1 * randn(D)]
     g, b, w1, b1, w2, b2 = weights
     rows = []
     for shape in ((8, 1024, D), (1, 6144, D), (3, 77, D)):
@@ -748,7 +778,8 @@ def check_fused_ffn(torch):
                 raise AssertionError(f"K3 disagrees with its plain version at {shape} {dtype}: "
                                      f"max |d|/tol {ratio}, finite {finite}")
             gd, bd, b1d, b2d = (t.to(dtype) for t in (g, b, b1, b2))
-            w1l, w2l = w1.t().to(dtype).contiguous(), w2.t().to(dtype).contiguous()
+            w1l, w2l = w1.t().to(dtype), w2.t().to(dtype)  # [out, in], contiguous
+            timed = [g, b, w1l.t(), b1, w2l.t(), b2]
 
             def chain():
                 h = F.linear(F.layer_norm(x, (D,), gd, bd, 1e-5), w1l, b1d)
@@ -757,14 +788,20 @@ def check_fused_ffn(torch):
             n = shape[0] * shape[1]
             isz = x.element_size()
             row = timing_row(torch, shape, dtype, float(d.max()), ratio,
-                             lambda: fused_ln_ffn_residual(x, *weights),
-                             lambda: fused_ln_ffn_residual_plain(x, *weights), chain,
+                             lambda: fused_ln_ffn_residual(x, *timed),
+                             lambda: fused_ln_ffn_residual_plain(x, *timed), chain,
                              2 * n * D * isz + 2 * D * H * isz + (3 * D + H) * 4,
                              4 * n * D * H, PEAK_FLOPS[str(dtype)[6:]])
             row["eager_chain_ms"], row["library_ms"] = row["library_ms"], None
+            # 36 calls in a row, as a forward makes them
+            row["kernel_ms_back_to_back"] = back_to_back_ms(
+                torch, lambda: fused_ln_ffn_residual(x, *timed))
+            row["eager_chain_ms_back_to_back"] = back_to_back_ms(torch, chain)
             log(f"  K3 {list(shape)} {str(dtype)[6:]}: kernel {row['kernel_ms']:.4f} ms, plain "
                 f"{row['plain_ms']:.4f} ms, unfused eager chain {row['eager_chain_ms']:.4f} ms, "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); 36 calls in a row: kernel "
+                f"{row['kernel_ms_back_to_back']:.4f} ms, chain "
+                f"{row['eager_chain_ms_back_to_back']:.4f} ms a call")
             rows.append(row)
             del x, got, want, d
     torch.cuda.empty_cache()
@@ -884,21 +921,23 @@ def splash_f32_reference(torch, qs, k, v, do, mask):
 
 
 def splash_flip_allowance(torch, qs, k, v, do, lse, di, mask):
-    """What K4's bf16 dk and dv may differ from splash_attention_bwd_dkv_plain's
-    on top of grad_tolerance. Both round P and dS = (dP - di) P to bf16 once,
-    as splash does, from f32 values that differ in their last bits (exp on
-    the special-function unit, sums in another order), and one term that
-    lands on the other side of a bf16 rounding moves dk by a bf16 ulp of its
-    dS times its qs, and dv by a bf16 ulp of its P times its dO: more than
-    0.002 RMS where T is long and the terms are many and small (on an H100:
-    dv 2.884 at [8, 8, 1024, 64], dk 2.2356 at (3, 2, 1000, 32)). Per
-    element (key j, column d): the largest such term over the key's
-    queries, one flip.
-    Returns (for dk, for dv)."""
+    """What K4's bf16 dq, dk and dv may differ from splash_attention_bwd_dq_plain's
+    and splash_attention_bwd_dkv_plain's on top of grad_tolerance. Kernel and
+    plain version round P and dS = (dP - di) P to bf16 once, as splash does,
+    from f32 values that differ in their last bits (exp on the
+    special-function unit, sums in another order), and one term that lands on
+    the other side of a bf16 rounding moves dq by a bf16 ulp of its dS times
+    its k, dk by a bf16 ulp of its dS times its qs, and dv by a bf16 ulp of
+    its P times its dO: more than 0.002 RMS where T is long and the terms are
+    many and small (on an H100: dv 2.884 at [8, 8, 1024, 64], dk 2.2356 and,
+    on the tensor cores, dq 2.2209 at (3, 2, 1000, 32)). Per element (query
+    or key, column d): the largest such term over the keys of the query or
+    the queries of the key, one flip.
+    Returns (for dq, for dk, for dv)."""
     from some_tpu_torch.ops import attention as A
 
     def one_flip(x, y):
-        """max over queries q of ulp_bf16(x[q, j]) * |y[q, d]|, in chunks of queries."""
+        """max over rows i of ulp_bf16(x[i, j]) * |y[i, d]|, in chunks of rows."""
         _, exponent = torch.frexp(x)
         ulp = torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), exponent - 8))
         del exponent
@@ -916,7 +955,7 @@ def splash_flip_allowance(torch, qs, k, v, do, lse, di, mask):
     dv = one_flip(p, do)
     ds = (dp - di[..., None]) * p
     del p, dp
-    return one_flip(ds, qs), dv
+    return one_flip(ds.transpose(-1, -2), k), one_flip(ds, qs), dv
 
 
 def check_splash_backward(torch):
@@ -972,15 +1011,15 @@ def check_splash_backward(torch):
                    *A.splash_attention_bwd_dkv(qs, k, v, do, lse, di, mask))
             bf16 = dtype == torch.bfloat16
             rel_own = 0.002 if bf16 else 2e-5
-            flips = ((None, *splash_flip_allowance(torch, qs, k, v, do, lse, di, mask))
-                     if bf16 else (None, None, None))
+            flips = (splash_flip_allowance(torch, qs, k, v, do, lse, di, mask) if bf16 else
+                     (None, None, None))
             plains = (A.splash_attention_bwd_dq_plain(qs, k, v, do, lse, di, mask),
                       *A.splash_attention_bwd_dkv_plain(qs, k, v, do, lse, di, mask))
             own = [compare(torch, f"K4 {n} kernel {label} vs its plain version", g, w, rel_own,
                            extra)[1]
                    for n, g, w, extra in zip(("dq", "dk", "dv"), got, plains, flips)]
             text = f"(dq, dk, dv) |d|/tol vs their plain versions {[round(r, 3) for r in own]} " \
-                   f"(2 ulp + {rel_own} RMS{' + one rounding flip for dk, dv' if bf16 else ''}"
+                   f"(2 ulp + {rel_own} RMS{' + one rounding flip' if bf16 else ''}"
             if bf16:
                 text += ", without it " + str([round(tol_ratio(torch, g, w, rel_own), 3)
                                                for g, w in zip(got, plains)])
@@ -1035,17 +1074,23 @@ def check_splash_backward(torch):
 
 
 def report_tensor_core_kernels(rows, hmma):
-    """Per tensor-core kernel at the training shapes in bf16: its time, the
-    ratio to SDPA's (one PyTorch call, the same inputs) and the share of its
-    bound."""
+    """Per tensor-core kernel at the main path's batch of 8 in bf16 (the
+    attention kernels' [8, 8, T, 64], K3's [8, 1024, 512]): its time, the
+    ratio to its yardstick on the same inputs and the share of its bound.
+    The yardstick of an attention kernel is SDPA (one PyTorch call); K3's is
+    the unfused eager chain it replaces (five PyTorch calls), since no one
+    call computes its function."""
     for _, kernel, name in TENSOR_CORE_KERNELS:
         counts = {n: c for n, c in hmma.items() if kernel in n}
         for r in rows[name]:
-            if r["dtype"] != "bfloat16" or r["shape"][:2] != [8, 8]:
+            if r["dtype"] != "bfloat16" or r["shape"][0] != 8 or (
+                    len(r["shape"]) == 4 and r["shape"][1] != 8):
                 continue
-            log(f"  {name} ({kernel}, {sum(counts.values())} HMMA in {len(counts)} variants) "
-                f"{r['shape']}: {r['kernel_ms']:.4f} ms, {r['kernel_ms'] / r['library_ms']:.2f}x "
-                f"SDPA ({r['library_ms']:.4f} ms), {r['bound_ms'] / r['kernel_ms']:.1%} of its "
+            yardstick, label = ((r["library_ms"], "SDPA") if r["library_ms"] is not None else
+                                (r["eager_chain_ms"], "the unfused eager chain"))
+            log(f"  {name} ({kernel}, {sum(counts.values())} HMMA/HGMMA in {len(counts)} variants) "
+                f"{r['shape']}: {r['kernel_ms']:.4f} ms, {r['kernel_ms'] / yardstick:.2f}x "
+                f"{label} ({yardstick:.4f} ms), {r['bound_ms'] / r['kernel_ms']:.1%} of its "
                 f"bound ({r['bound_ms']:.4f} ms, {r['bound_by']})")
 
 
@@ -1399,7 +1444,8 @@ def main() -> int:
         log(f"  {name}: {len(regs)} kernel variants, at most {max(regs.values())} registers, "
             f"{spills} bytes of spill stores")
     hmma = hmma_counts(libs, _build.nvcc_path())
-    log("HMMA instructions per kernel variant (cuobjdump -sass): " + json.dumps(hmma))
+    log("tensor-core instructions (HMMA, HGMMA) per kernel variant (cuobjdump -sass): "
+        + json.dumps(hmma))
     log("registers of the tensor-core kernels' variants: " + json.dumps(
         {n: r for n, r in registers.items()
          if any(kernel in n for _, kernel, _ in TENSOR_CORE_KERNELS)}))
@@ -1457,7 +1503,10 @@ def main() -> int:
                 "max_abs_err": max(r["max_abs_diff"] for r in rows[name]),
                 "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-                "library_ms": head["library_ms"], "shape": head["shape"],
+                "library_ms": head["library_ms"],
+                **{key: head[key] for key in ("eager_chain_ms", "kernel_ms_back_to_back",
+                                              "eager_chain_ms_back_to_back") if key in head},
+                "shape": head["shape"],
                 "dtype": head["dtype"], "card": card, "shapes": rows[name]}
 
     print(json.dumps({"kernels": [entry(*k) for k in kernels]}), flush=True)

@@ -1,6 +1,6 @@
 // The tensor-core tile of the bf16 attention kernels on Hopper (flash_attention.cu's inference and
 // training forwards, flash_attention_bwd.cu's dk/dv and dq kernels, splash_attention.cu's forward,
-// splash_attention_bwd.cu's dk/dv kernel): bf16 tiles copied with cp.async into a double-buffered
+// splash_attention_bwd.cu's dk/dv and dq kernels): bf16 tiles copied with cp.async into a double-buffered
 // ring in shared memory, read with ldmatrix, multiplied with mma.sync.m16n8k16 (bf16 operands,
 // f32 sums).
 //

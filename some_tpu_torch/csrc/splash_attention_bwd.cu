@@ -26,7 +26,7 @@
 //
 // Bound: operations (the five T x T x D products below against 8 * T * D elements moved per
 // (batch, head)). f32 does its products as f32 FMAs on the CUDA cores (no TF32), with f32
-// accumulators; the bf16 dk/dv kernel runs on the tensor cores (below).
+// accumulators; the bf16 dk/dv and dq kernels run on the tensor cores (below).
 //
 // Design: the flash backward kernels' (flash_attention_bwd.cu), with the same tiles and no
 // atomics, so two runs give the same bits.
@@ -43,13 +43,22 @@
 //     splash rounds it, is the A fragment of dK += dS^T qs. A query tile with no query of a
 //     segment the block's keys have adds exactly 0 (P = 0 across segments) and is skipped, as the
 //     forward skips key tiles: real keys never walk padded query tiles, and the reverse.
-//   * dq: a block owns 64 queries, keeps Q^T and dO^T in shared memory and its dQ rows in
-//     registers, and walks the key tiles, on the CUDA cores in both dtypes. Each thread holds 4
-//     queries x 8 keys.
-// In the f32 kernels a query past T gets lse = +inf, in the bf16 one a score of -inf, so its P is
-// 0. Inputs are read, and dQ, dK, dV written, through their strides, so all may be [B, H, T, D]
-// views of [B, T, H, D] storage; the bf16 kernel copies rows with cp.async, so its wrapper raises
-// on rows that are not 16-byte aligned.
+//   * dq: a block owns 64 queries, keeps its dQ rows in registers, and walks the key tiles. In
+//     f32 (splash_bwd_dq_kernel) Q^T and dO^T stay in shared memory and each thread holds 4
+//     queries x 8 keys. In bf16 (splash_bwd_dq_mma_kernel) it is K2's dq tile with splash's
+//     scores: qs and dO are A fragments (warp w owns queries 16 w .. 16 w + 15), the ring carries
+//     K and V, and each row reads its lse, di and segment once. S = qs K^T sums the same products
+//     in the same k16 steps as the forward's S and the dk/dv kernel's S^T, and splash_score and
+//     P = exp(s - lse) are the dk/dv kernel's, so its P and dS are the transposes of what dk/dv
+//     forms, bit for bit. dS = (dP - di) P with dP = dO V^T in f32, rounded to bf16 once, is
+//     the A fragment of dQ += dS K, K the B operand in V's layout: three products a tile, no
+//     hi + lo and no correction (di is exact already, above). Key tiles with no key of a
+//     segment the block's queries have add exactly 0 and are skipped, as the forward skips them.
+// In the f32 kernels a query past T gets lse = +inf, in the bf16 dk/dv kernel a score of -inf, so
+// its P is 0; the bf16 dq kernel never stores a query past T. Inputs are read, and dQ, dK, dV
+// written, through their strides, so all may be [B, H, T, D] views of [B, T, H, D] storage; the
+// bf16 kernels copy rows with cp.async, so their wrappers raise on rows that are not 16-byte
+// aligned.
 #include <type_traits>
 
 #include "attention_mma.cuh"
@@ -314,6 +323,100 @@ splash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
   mma::store_output<D>(mma::head_slice(dv, dvs), dvs.t, k0, t_len, o_dv, {1.0f, 1.0f});
 }
 
+// The bf16 dq kernel on the tensor cores: splash_bwd_dq_kernel's function on the tile of
+// attention_mma.cuh (see the note at the top). Warp w owns query rows 16 w .. 16 w + 15 of the
+// block, held as A fragments of qs and dO; a thread holds rows g and g + 8 (lane = 4 g + c) of
+// each S and dP tile, against keys 8 n + 2 c, 8 n + 2 c + 1.
+template <int D>
+__global__ void __launch_bounds__(some_mma::kThreads)
+splash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                         const float* __restrict__ di, const uint8_t* __restrict__ mask,
+                         __nv_bfloat16* __restrict__ dq, int t_len, Strides qs, Strides ks,
+                         Strides vs_, Strides dos, Strides dqs) {
+  namespace mma = some_mma;
+  using L = mma::Layout<D>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  const mma::Smem sm = mma::carve_smem<D>(mma_smem, t_len, 2);
+  const int q0 = blockIdx.x * mma::kRows;
+  const uint8_t* mb = mask ? mask + static_cast<size_t>(blockIdx.z) * t_len : nullptr;
+
+  mma::load_tile<D>(sm.q_tile, mma::head_slice(q, qs), qs.t, q0, t_len);
+  mma::load_tile<D>(sm.v_tile, mma::head_slice(dout, dos), dos.t, q0, t_len);
+  mma::cp_async_commit();
+  // exact skipping, as the forward: walk the key tiles that hold a key of a segment a query of
+  // this block has; in any other, every (query, key) pair is across segments, P is exactly 0 and
+  // so is dS
+  mma::TileFilter filter{nullptr, nullptr, false, true};
+  if (mb != nullptr) {
+    mma::tile_segments(sm, mb, t_len);
+    const uint32_t bit = 1u << (blockIdx.x & 31);
+    filter = mma::TileFilter{sm.seg0, sm.seg1, (sm.seg0[blockIdx.x >> 5] & bit) != 0u,
+                             (sm.seg1[blockIdx.x >> 5] & bit) != 0u};
+  }
+  // the thread's two query rows: segment, lse and di, read once; past T never stored
+  const size_t row0 = (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * t_len;
+  int q_seg[2];
+  float row_lse[2], row_di[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = q0 + mma::thread_row(i);
+    const bool valid = t < t_len;
+    q_seg[i] = segment_of(mb, t, t_len);
+    row_lse[i] = valid ? lse[row0 + t] : 0.0f;
+    row_di[i] = valid ? di[row0 + t] : 0.0f;
+  }
+  uint32_t qf[L::kKSteps][4], dof[L::kKSteps][4];
+  mma::load_q_fragments<D>(qf, sm);
+  mma::load_a_fragments<D>(dof, sm.v_tile);
+
+  float o_dq[L::kOutTiles][4] = {};
+  mma::walk_tiles<D, true>(
+      sm, filter, mma::head_slice(k, ks), ks.t, mma::head_slice(v, vs_), vs_.t, mb, t_len,
+      [&](int j, const bf16* k_tile, const bf16* v_tile, uint64_t real) {
+        float s[8][4], dp[8][4];
+        mma::score_tile<D>(s, qf, k_tile);    // S: the forward's sums, the dk/dv kernel's S^T
+        mma::score_tile<D>(dp, dof, v_tile);  // dP = dO V^T, f32
+        // splash's scores, as the forward and the dk/dv kernel give them
+        if (!(real == ~0ull && q_seg[0] == 1 && q_seg[1] == 1)) {
+          const uint32_t segment = mma::thread_columns(real);
+          const uint32_t below_t = mma::thread_columns(mma::below_t_bits(j * mma::kRows, t_len));
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int bit = 2 * n + (e & 1);
+              s[n][e] = splash_score(
+                  s[n][e], ((below_t >> bit) & 1u) ? static_cast<int>((segment >> bit) & 1u) : kPastT,
+                  q_seg[e >> 1]);
+            }
+        }
+        // 16 keys a step: register 2 hh + i of a fragment holds row i's pair of tile 2 ks + hh
+#pragma unroll
+        for (int kstep = 0; kstep < 4; ++kstep) {
+          uint32_t sf[1][4];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int n = 2 * kstep + hh;
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const float p0 = mma::exp_(__fsub_rn(s[n][2 * i], row_lse[i]));
+              const float p1 = mma::exp_(__fsub_rn(s[n][2 * i + 1], row_lse[i]));
+              // dS = (dP - di) P in f32, rounded to bf16 once, as splash rounds it
+              sf[0][2 * hh + i] = mma::pack_bf16(__floats2bfloat162_rn(
+                  __fmul_rn(__fsub_rn(dp[n][2 * i], row_di[i]), p0),
+                  __fmul_rn(__fsub_rn(dp[n][2 * i + 1], row_di[i]), p1)));
+            }
+          }
+          mma::pv_step<D, 1>(o_dq, sf, k_tile, kstep);  // dQ += round(dS) K, K in V's layout
+        }
+      });
+
+  mma::store_output<D>(mma::head_slice(dq, dqs), dqs.t, q0, t_len, o_dq, {1.0f, 1.0f});
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 splash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -453,16 +556,27 @@ cudaError_t launch_dkv(const Args& a) {
 
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a) {
-  const int smem = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(splash_bwd_dq_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.t_len + kBQ - 1) / kBQ, a.heads, a.batch);
-  splash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.di, static_cast<const uint8_t*>(a.mask),
-      static_cast<T*>(a.dq), a.t_len, a.qs, a.ks, a.vs_, a.dos, a.dqs);
-  return cudaGetLastError();
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  const uint8_t* mask = static_cast<const uint8_t*>(a.mask);
+  T* dq = static_cast<T*>(a.dq);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // bf16 runs on the tensor cores; f32 stays on the CUDA cores (true f32)
+    return some_mma::launch_blocks<D, 2>(splash_bwd_dq_mma_kernel<D>, a.batch, a.heads, a.t_len,
+                                         a.stream, q, k, v, dout, a.lse, a.di, mask, dq, a.t_len,
+                                         a.qs, a.ks, a.vs_, a.dos, a.dqs);
+  } else {
+    const int smem = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
+    cudaError_t err = cudaFuncSetAttribute(splash_bwd_dq_kernel<T, D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.t_len + kBQ - 1) / kBQ, a.heads, a.batch);
+    splash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+        q, k, v, dout, a.lse, a.di, mask, dq, a.t_len, a.qs, a.ks, a.vs_, a.dos, a.dqs);
+    return cudaGetLastError();
+  }
 }
 
 // which: 0 = dkv, 1 = dq

@@ -117,3 +117,19 @@ def refuse_grad(what: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(f"{what} has no backward on this path: route it through its "
                            "autograd.Function")
+
+
+def check_rows_aligned(what: str, *tensors) -> None:
+    """The bf16 kernels on the tensor cores copy rows in 16-byte pieces
+    (``cp.async``, or TMA in the fused FFN): every row they copy must start
+    on a 16-byte boundary (data pointers and every stride but the last:
+    batch, head and time of a [B, H, T, D] tensor, the row of an [N, D]
+    one). The model's tensors meet this; there is no fallback to another
+    kernel."""
+    import torch
+
+    for t in tensors:
+        # a bf16 stride of 8 elements is 16 bytes
+        if t.dtype is torch.bfloat16 and (t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1])):
+            raise ValueError(f"{what}: bf16 rows must be 16-byte aligned (cp.async, TMA), got "
+                             f"strides {t.stride()} at address {t.data_ptr():#x}")

@@ -37,11 +37,11 @@ the layout of the projections q, k and v are views of, so the transposes
 back cost nothing; the concatenation of dk and dv into the fused kv
 projection's gradient is the one copy, as with any split.
 
-In bf16 K2's inference and training forwards, K2's dk/dv and dq kernels,
-the splash forward and K4's dk/dv kernel run on the tensor cores
-(``csrc/attention_mma.cuh``), which copy 16-byte rows with ``cp.async``:
-their wrappers raise on a bf16 row that is not 16-byte aligned. f32 runs on
-the CUDA cores in true f32, and so does K4's dq kernel in both dtypes.
+In bf16 every attention kernel (K2's inference and training forwards, K2's
+dk/dv and dq kernels, the splash forward, K4's dk/dv and dq kernels) runs on
+the tensor cores (``csrc/attention_mma.cuh``), which copy 16-byte rows with
+``cp.async``: their wrappers raise on a bf16 row that is not 16-byte
+aligned. f32 runs on the CUDA cores in true f32.
 
 The two JAX paths differ on padded frames; PERF.md says where that reaches a
 training loss.
@@ -106,19 +106,6 @@ def _bhtd_like(q: torch.Tensor) -> torch.Tensor:
     return torch.empty((B, T, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
 
 
-def _check_rows_aligned(what: str, *tensors) -> None:
-    """The bf16 kernels on the tensor cores copy rows of 16 bytes with
-    ``cp.async``: every row they copy must start on a 16-byte boundary (data
-    pointers and the batch, head and time strides). The model's [B, H, T, D]
-    views of [B, T, H, D] storage meet this; there is no fallback to another
-    kernel."""
-    for t in tensors:
-        if t.dtype == torch.bfloat16 and (
-                t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in t.stride()[:3])):
-            raise ValueError(f"{what}: bf16 rows must be 16-byte aligned for cp.async, got "
-                             f"strides {t.stride()} at address {t.data_ptr():#x}")
-
-
 def _mask_ptr(mask):
     """The mask's address; _check has made sure it is a [B, T] bool tensor,
     which its constructors make contiguous."""
@@ -155,7 +142,7 @@ def _launch(q, k, v, mask, scale):
     B, H, T, D = q.shape
     q, k, v = (_last_contiguous(t) for t in (q, k, v))
     out = _bhtd_like(q)
-    _check_rows_aligned("flash_attention", q, k, v, out)
+    _build.check_rows_aligned("flash_attention", q, k, v, out)
     err = _fn("some_flash_attention_fwd", 5, 4)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(mask), out.data_ptr(),
         B, H, T, D, _strides(q), _strides(k), _strides(v), _strides(out),
@@ -173,7 +160,7 @@ def flash_attention_fwd_res(q, k, v, mask, scale):
     B, H, T, D = q.shape
     q, k, v = (_last_contiguous(t) for t in (q, k, v))
     out = _bhtd_like(q)
-    _check_rows_aligned("flash_attention_fwd_res", q, k, v, out)
+    _build.check_rows_aligned("flash_attention_fwd_res", q, k, v, out)
     stats = torch.empty((B, H, T, 2), dtype=torch.float32, device=q.device)
     err = _fn("some_flash_attention_fwd_stats", 6, 4)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(mask), out.data_ptr(),
@@ -244,7 +231,7 @@ def flash_attention_bwd_dq_plain(q, k, v, dout, stats, delta, mask, scale):
 def flash_attention_bwd_dkv(q, k, v, dout, stats, delta, mask, scale):
     """dk, dv from the dk/dv kernel."""
     _build.refuse_grad("flash_attention_bwd_dkv", q, k, v, dout)
-    _check_rows_aligned("flash_attention_bwd_dkv", q, k, v, dout)
+    _build.check_rows_aligned("flash_attention_bwd_dkv", q, k, v, dout)
     B, H, T, D = q.shape
     dk, dv = _bhtd_like(q), _bhtd_like(q)
     err = _fn("some_flash_attention_bwd_dkv", 9, 6)(
@@ -264,7 +251,7 @@ def flash_attention_bwd_dq(q, k, v, dout, stats, delta, mask, scale):
     _build.refuse_grad("flash_attention_bwd_dq", q, k, v, dout)
     B, H, T, D = q.shape
     dq = _bhtd_like(q)
-    _check_rows_aligned("flash_attention_bwd_dq", q, k, v, dout, dq)
+    _build.check_rows_aligned("flash_attention_bwd_dq", q, k, v, dout, dq)
     delta_out = torch.empty_like(delta)
     err = _fn("some_flash_attention_bwd_dq", 9, 5)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
@@ -372,7 +359,7 @@ def _splash_forward(qs, k, v, mask, counter):
     B, H, T, D = qs.shape
     qs, k, v = (_last_contiguous(t) for t in (qs, k, v))
     out = _bhtd_like(qs)
-    _check_rows_aligned(counter.__name__, qs, k, v, out)
+    _build.check_rows_aligned(counter.__name__, qs, k, v, out)
     training = counter is splash_attention_fwd_res
     lse = torch.empty((B, H, T), dtype=torch.float32, device=qs.device) if training else None
     out_lo = _bhtd_like(qs) if training and qs.dtype == torch.bfloat16 else None
@@ -446,7 +433,7 @@ def splash_attention_bwd_dkv(qs, k, v, dout, lse, di, mask):
     _build.refuse_grad("splash_attention_bwd_dkv", qs, k, v, dout)
     B, H, T, D = qs.shape
     dk, dv = _bhtd_like(qs), _bhtd_like(qs)
-    _check_rows_aligned("splash_attention_bwd_dkv", qs, k, v, dout, dk, dv)
+    _build.check_rows_aligned("splash_attention_bwd_dkv", qs, k, v, dout, dk, dv)
     err = _fn("some_splash_attention_bwd_dkv", 9, 6)(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         di.data_ptr(), _mask_ptr(mask), dk.data_ptr(), dv.data_ptr(), B, H, T, D,
@@ -462,6 +449,7 @@ def splash_attention_bwd_dq(qs, k, v, dout, lse, di, mask):
     _build.refuse_grad("splash_attention_bwd_dq", qs, k, v, dout)
     B, H, T, D = qs.shape
     dq = _bhtd_like(qs)
+    _build.check_rows_aligned("splash_attention_bwd_dq", qs, k, v, dout, dq)
     err = _fn("some_splash_attention_bwd_dq", 8, 5)(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         di.data_ptr(), _mask_ptr(mask), dq.data_ptr(), B, H, T, D,

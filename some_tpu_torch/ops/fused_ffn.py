@@ -2,9 +2,12 @@
 
 Counterpart of ``some_tpu/ops/fused_ffn.py``. On a CUDA tensor
 :func:`fused_ln_ffn_residual` launches the hand-written Hopper kernel of
-``csrc/fused_ffn.cu`` (which replaces the Pallas TPU kernel ``_ffn_kernel``)
-and counts it in ``fused_ln_ffn_residual.launches``; on a CPU tensor it runs
-:func:`fused_ln_ffn_residual_plain`.
+``csrc/fused_ffn.cu`` (which replaces the Pallas TPU kernel ``_ffn_kernel``:
+bf16 on the tensor cores, f32 on the CUDA cores) and counts it in
+``fused_ln_ffn_residual.launches``; on a CPU tensor it runs
+:func:`fused_ln_ffn_residual_plain`. The bf16 kernel loads rows with TMA,
+so a bf16 x or weight whose rows are not 16-byte aligned raises; there is
+no fallback.
 
 The arithmetic is the JAX kernel's, not the unfused FeedForward's: the
 LayerNorm variance is ``mean((x - mu)^2)`` in f32, the normalized rows are
@@ -21,6 +24,7 @@ w1 ``[D, H]`` and w2 ``[H, D]``; the model passes transposed views of its
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -59,8 +63,20 @@ def _check(x, ln_scale, ln_bias, w1, b1, w2, b2):
             or any(t.shape != (D,) for t in (ln_scale, ln_bias, b2))):
         raise ValueError(f"want w1 [D,H], w2 [H,D], b1 [H] and D-vectors, got "
                          f"{tuple(w1.shape)}, {tuple(w2.shape)}, {tuple(b1.shape)}")
-    if any(t.device != x.device for t in (ln_scale, ln_bias, w1, b1, w2, b2)):
+    device = x.get_device()
+    if any(t.get_device() != device for t in (ln_scale, ln_bias, w1, b1, w2, b2)):
         raise ValueError("x and the FFN's weights must be on one device")
+
+
+@functools.cache
+def _kernel():
+    """The C entry point, typed once: the launch runs on every macaron FFN of
+    every forward, so its host time counts."""
+    fn = _build.load("fused_ffn").some_fused_ln_ffn_residual
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
+    return fn
 
 
 def _launch(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, res_scale):
@@ -72,19 +88,16 @@ def _launch(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, res_scale):
     # [out, in] storage, as torch's Linear keeps it: a view's transpose is free
     w1t = w1.t().to(x.dtype).contiguous()
     w2t = w2.t().to(x.dtype).contiguous()
+    _build.check_rows_aligned("fused_ln_ffn_residual", x2, w1t, w2t)
     vecs = [t.float().contiguous() for t in (ln_scale, ln_bias, b1, b2)]
-    out = torch.empty_like(x2)
-    fn = _build.load("fused_ffn").some_fused_ln_ffn_residual
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
-                   + [ctypes.c_int, ctypes.c_void_p])
-    err = fn(x2.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), w1t.data_ptr(),
-             vecs[2].data_ptr(), w2t.data_ptr(), vecs[3].data_ptr(), out.data_ptr(),
-             x2.shape[0], D, w1.shape[-1], float(eps), float(res_scale), _DTYPE_CODES[x.dtype],
-             torch.cuda.current_stream(x.device).cuda_stream)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)  # [N, D] rows, contiguous
+    err = _kernel()(x2.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), w1t.data_ptr(),
+                    vecs[2].data_ptr(), w2t.data_ptr(), vecs[3].data_ptr(), out.data_ptr(),
+                    x2.shape[0], D, w1.shape[-1], float(eps), float(res_scale),
+                    _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_ln_ffn_residual")
     fused_ln_ffn_residual.launches += 1
-    return out.reshape(shape)
+    return out
 
 
 def fused_ln_ffn_residual(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2,

@@ -13,6 +13,7 @@ import torch
 from chip_smoke import bf16_ulp
 from some_tpu.ops.fused_ffn import fused_ln_ffn_residual as jax_fused
 from some_tpu_torch.nn.conformer import ConformerBlock
+from some_tpu_torch.ops import _build
 from some_tpu_torch.ops import fused_ffn as F
 
 
@@ -93,3 +94,22 @@ def test_fused_block_matches_unfused_in_eval_and_trains_unfused():
                                    atol=5e-6, rtol=0)
         torch.testing.assert_close(fused.train()(x, mask), plain.train()(x, mask),
                                    atol=0, rtol=0)
+
+
+def test_fused_ffn_bf16_refuses_misaligned_rows():
+    """The bf16 kernel loads x's rows and the weights' rows with TMA, which
+    takes 16-byte aligned rows: a bf16 x 2 bytes off a 16-byte boundary
+    raises ValueError before any build or launch, with no fallback to
+    another kernel; the f32 kernel has no such load, so an f32 x at the same
+    offset passes the check."""
+    D, H = 64, 256
+    weights = [torch.from_numpy(w) for w in _weights(D, H, seed=3)]
+    storage = torch.zeros(2 * 5 * D + 1, dtype=torch.bfloat16)
+    shifted = storage[1:].view(2, 5, D)
+    assert shifted.data_ptr() % 16 == 2
+    before = F.fused_ln_ffn_residual.launches
+    with torch.no_grad(), pytest.raises(ValueError, match="16-byte"):
+        F._launch(shifted, *weights, 1e-5, 0.5)
+    assert F.fused_ln_ffn_residual.launches == before
+    _build.check_rows_aligned("fused_ln_ffn_residual",
+                              torch.zeros(2 * 5 * D + 1)[1:].view(-1, D))
