@@ -31,10 +31,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
      a kernel-vs-plain train step for each; an f32 loss that falls.
 Prints one JSON line of kernel measurements, one of path results and,
 last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+
+Every kernel row's ``ms`` and ``library_ms`` is one call's CUDA-event time,
+host work included where the card waits for it. K1's rows add the card's
+time alone (``device_ms``, ``library_device_ms``: the durations of a call's
+kernels, from torch.profiler) and the wrapper's host time (``host_ms``).
 """
 import json
 import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -66,6 +72,42 @@ def median_ms(torch, fn, reps=20, warmup=3):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(torch, fn, calls=20, warmup=3):
+    """Time on the card of one call of ``fn``, in ms: the durations of the
+    kernels it launches, summed (torch.profiler, over ``calls`` calls). The
+    wrapper's host work, launch gaps and the CUDA events' own overhead, which
+    ``median_ms`` includes, fall outside. None where the profiler recorded
+    no kernel on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / calls / 1e3 if total_us > 0 else None
+
+
+def host_ms(torch, fn, calls=50, warmup=3):
+    """Host time of one call of ``fn``, in ms: the median over ``calls``
+    calls, each timed on the host's clock, issued with no synchronization
+    between them (the card's queue takes the launches)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -144,6 +186,55 @@ def kernel_registers(report: str):
     return regs
 
 
+def kernel_spills(report: str):
+    """Bytes of spill stores of each kernel variant in an ``nvcc -Xptxas -v``
+    report, keyed by mangled name."""
+    spills, name = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line and name is not None:
+            spills[name] = int(line.split(" bytes spill stores")[0].split()[-1])
+    return spills
+
+
+def depthwise_variant(name: str):
+    """'fwd bf16 K=31' for a mangled K1 kernel name, None for another kernel."""
+    kernel = next((k for k in ("fwd", "dw_partial", "dw_reduce")
+                   if f"depthwise_{k}_kernel" in name), None)
+    if kernel is None:
+        return None
+    args = name.split(f"depthwise_{kernel}_kernel")[1]
+    taps = args.split("Li")[1].split("E")[0] if "Li" in args else "-"
+    return f"{kernel} {'bf16' if 'bfloat16' in args else 'f32'} K={taps}"
+
+
+def report_depthwise_variants(lib: pathlib.Path, nvcc: str):
+    """Registers and spills of every K1 kernel variant, and the instruction
+    mix of each variant's SASS (cuobjdump -sass): all instructions, and the
+    FP32 arithmetic of the taps among them (FMUL + FADD in the forward, FFMA
+    in the partials). Raises if a production variant (K = 31) spills."""
+    report = lib.with_suffix(".log").read_text()
+    regs, spills = kernel_registers(report), kernel_spills(report)
+    short = {n: depthwise_variant(n) for n in regs if depthwise_variant(n)}
+    log("K1 kernel variants (registers, bytes of spill stores): " + json.dumps(
+        {short[n]: [regs[n], spills.get(n, 0)] for n in short}))
+    bad = [short[n] for n in short if short[n].endswith("K=31") and spills.get(n, 0)]
+    if bad:
+        raise AssertionError(f"K1 production variants spill registers: {bad}")
+    sass = subprocess.run([str(pathlib.Path(nvcc).parent / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    mix = {}
+    for block in sass.split("Function : ")[1:]:
+        variant = depthwise_variant(block.split()[0])
+        if variant is None or variant.startswith("dw_reduce"):
+            continue
+        ops = [m.group(1) for m in re.finditer(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", block)]
+        mix[variant] = [len(ops), sum(op in ("FMUL", "FADD", "FFMA") for op in ops)]
+    log("K1 SASS (instructions, of them FMUL/FADD/FFMA): " + json.dumps(mix))
+
+
 def bf16_ulp(torch, ref):
     """Spacing of bfloat16 numbers at each |ref| (8 significant bits)."""
     _, exponent = torch.frexp(ref.float().abs())
@@ -165,13 +256,29 @@ def grad_tolerance(torch, want, rel, dtype=None):
     return 2 * ulp + rel * float(w.pow(2).mean().sqrt())
 
 
-def check_depthwise(torch):
+# K1's shapes: [8, 1024, 512] bf16 heads its rows in the kernels line; then one
+# long sequence, the infer path's [8, 512, 512] and [1, 6144, 512], the train
+# path's [8, 2048, 512]
+DEPTHWISE_SHAPES = ((8, 1024, 512), (1, 32768, 512), (8, 512, 512), (1, 6144, 512),
+                    (8, 2048, 512))
+
+
+def fp32_floor_ms(torch, B, T, C, K, sm_clock_mhz):
+    """K1 forward's FP32-instruction floor: one rounded multiply and one
+    rounded add a tap and output (no fused multiply-add, to stay bit for bit
+    with the plain version), 2 K B T C lane-operations over every SM's 128
+    FP32 lanes at the card's maximum SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 2 * K * B * T * C / (sms * 128 * sm_clock_mhz * 1e6) * 1e3
+
+
+def check_depthwise(torch, sm_clock_mhz):
     import torch.nn.functional as F
     from some_tpu_torch.ops.depthwise import depthwise_conv1d, depthwise_conv1d_plain
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for shape in ((8, 1024, 512), (1, 32768, 512)):
+    for shape in DEPTHWISE_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             B, T, C = shape
             K = 31
@@ -180,16 +287,11 @@ def check_depthwise(torch):
             got = depthwise_conv1d(x, w)
             want = depthwise_conv1d_plain(x, w)
             torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            max_diff = float(diff.max())
-            if dtype == torch.float32:
-                ok = max_diff <= 1e-5
-                tol = "max|d| <= 1e-5"
-            else:
-                ok = bool((diff <= bf16_ulp(torch, want)).all())
-                tol = "|d| <= 1 bf16 ulp"
-            log(f"K1 depthwise {list(shape)} {str(dtype)[6:]}: max|d| {max_diff:.3e} ({tol}): "
-                f"{'ok' if ok else 'FAIL'}")
+            max_diff = float((got.float() - want.float()).abs().max())
+            # same arithmetic in the same order as the plain version: bit for bit
+            ok = torch.equal(got, want)
+            log(f"K1 depthwise {list(shape)} {str(dtype)[6:]}: max|d| {max_diff:.3e} (bit for "
+                f"bit): {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"K1 depthwise disagrees with its plain version at "
                                      f"{shape} {dtype}: max|d| {max_diff}")
@@ -200,14 +302,20 @@ def check_depthwise(torch):
             itemsize = x.element_size()
             bound_ms, bound_by = bound((2 * B * T * C + K * C) * itemsize, 2 * B * T * C * K,
                                        PEAK_FLOPS["float32"])
+            floor_ms = fp32_floor_ms(torch, B, T, C, K, sm_clock_mhz)
+            log(f"K1 depthwise {list(shape)} {str(dtype)[6:]}: bytes bound {bound_ms:.4f} ms, "
+                f"FP32-instruction floor {floor_ms:.4f} ms (2 K B T C at {sm_clock_mhz} MHz)")
+            library = lambda: F.conv1d(xc, wc, padding=K // 2, groups=C)  # noqa: E731
             rows.append({
                 "shape": list(shape), "dtype": str(dtype)[6:], "max_abs_diff": max_diff,
                 "kernel_ms": median_ms(torch, lambda: depthwise_conv1d(x, w)),
+                "device_ms": device_ms(torch, lambda: depthwise_conv1d(x, w)),
+                "host_ms": host_ms(torch, lambda: depthwise_conv1d(x, w)),
                 "plain_ms": median_ms(torch, lambda: depthwise_conv1d_plain(x, w), reps=5),
-                "library_ms": median_ms(torch, lambda: F.conv1d(xc, wc, padding=K // 2,
-                                                               groups=C)),
-                "bound_ms": bound_ms, "bound_by": bound_by})
-            del x, w, got, want, diff, xc, wc
+                "library_ms": median_ms(torch, library),
+                "library_device_ms": device_ms(torch, library),
+                "bound_ms": bound_ms, "bound_by": bound_by, "fp32_floor_ms": floor_ms})
+            del x, w, got, want, xc, wc
     return rows
 
 
@@ -551,11 +659,13 @@ def timing_row(torch, shape, dtype, max_diff, ratio, kernel, plain, library, nby
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def check_depthwise_backward(torch):
+def check_depthwise_backward(torch, sm_clock_mhz):
     """K1's backward: dx (the forward kernel on the cotangent with the taps
-    flipped) and dw (the reduction kernel) against the autograd of the plain
-    version, on a random cotangent. Tolerance: 2 ulp of |want| in its dtype
-    plus 1e-4 x RMS(want) (f32 sums over B*T in another order)."""
+    in reverse order) and dw (the reduction kernels) against the autograd of
+    the plain version, on a random cotangent. Tolerance: 2 ulp of |want| in
+    its dtype plus 1e-4 x RMS(want) (f32 sums over B*T in another order);
+    dx also bit for bit against the plain version on w.flip(0), dw the same
+    bits on a second run."""
     from some_tpu_torch.ops.depthwise import (
         depthwise_conv1d, depthwise_conv1d_dw, depthwise_conv1d_dw_plain, depthwise_conv1d_dx,
         depthwise_conv1d_plain,
@@ -564,7 +674,7 @@ def check_depthwise_backward(torch):
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = {"depthwise_conv1d_dx": [], "depthwise_conv1d_dw": []}
     K = 31
-    for shape in ((8, 1024, 512), (1, 32768, 512)):
+    for shape in DEPTHWISE_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             B, T, C = shape
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype).requires_grad_()
@@ -592,9 +702,27 @@ def check_depthwise_backward(torch):
                 max_diff, ratio = compare(torch, f"{name} {list(shape)} {dtype}", got, want, 1e-4)
                 log(f"{name} {list(shape)} {str(dtype)[6:]}: max|d| {max_diff:.3e}, max |d|/tol "
                     f"{ratio:.3f} (2 ulp + 1e-4 RMS): ok")
-                rows[name].append(timing_row(torch, shape, dtype, max_diff, ratio, kernel, plain,
-                                             library, nbytes, 2 * B * T * C * K,
-                                             PEAK_FLOPS["float32"]))
+                if name == "depthwise_conv1d_dx":
+                    # bit for bit with the plain version on the reversed taps
+                    want_flip = depthwise_conv1d_plain(g, wd.flip(0))
+                    if not torch.equal(kernel(), want_flip):
+                        raise AssertionError(f"K1 dx differs from the plain version on "
+                                             f"w.flip(0) at {shape} {dtype}")
+                else:
+                    # no atomics: a second run gives the same bits
+                    if not torch.equal(kernel(), dw):
+                        raise AssertionError(f"K1 dw changed bits between runs at {shape} {dtype}")
+                row = timing_row(torch, shape, dtype, max_diff, ratio, kernel, plain, library,
+                                 nbytes, 2 * B * T * C * K, PEAK_FLOPS["float32"])
+                row["device_ms"] = device_ms(torch, kernel)
+                row["host_ms"] = host_ms(torch, kernel)
+                row["library_device_ms"] = device_ms(torch, library)
+                if name == "depthwise_conv1d_dx":
+                    row["fp32_floor_ms"] = fp32_floor_ms(torch, B, T, C, K, sm_clock_mhz)
+                    log(f"{name} {list(shape)} {str(dtype)[6:]}: bytes bound "
+                        f"{row['bound_ms']:.4f} ms, FP32-instruction floor "
+                        f"{row['fp32_floor_ms']:.4f} ms")
+                rows[name].append(row)
             del x, w, g, y, dx, dw, want_dx, want_dw, xd, wd, xc, gc, wc
             torch.cuda.empty_cache()
     return rows
@@ -1406,6 +1534,14 @@ def overfit_f32(torch, n_steps=30):
     return {"losses": losses, "first5_mean": first, "last5_mean": last}
 
 
+def max_sm_clock_mhz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True)
+    return float(smi.stdout.strip().splitlines()[0])
+
+
 def main() -> int:
     import torch
 
@@ -1426,6 +1562,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+    sm_clock_mhz = max_sm_clock_mhz()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
 
@@ -1443,6 +1580,7 @@ def main() -> int:
                      for line in report.splitlines() if "spill stores" in line)
         log(f"  {name}: {len(regs)} kernel variants, at most {max(regs.values())} registers, "
             f"{spills} bytes of spill stores")
+    report_depthwise_variants(libs["depthwise_conv"], _build.nvcc_path())
     hmma = hmma_counts(libs, _build.nvcc_path())
     log("tensor-core instructions (HMMA, HGMMA) per kernel variant (cuobjdump -sass): "
         + json.dumps(hmma))
@@ -1450,8 +1588,9 @@ def main() -> int:
         {n: r for n, r in registers.items()
          if any(kernel in n for _, kernel, _ in TENSOR_CORE_KERNELS)}))
 
-    rows = {"depthwise_conv1d": check_depthwise(torch), "flash_attention": check_attention(torch)}
-    rows.update(check_depthwise_backward(torch))
+    rows = {"depthwise_conv1d": check_depthwise(torch, sm_clock_mhz),
+            "flash_attention": check_attention(torch)}
+    rows.update(check_depthwise_backward(torch, sm_clock_mhz))
     rows.update(check_attention_backward(torch))
     rows["fused_ln_ffn_residual"] = check_fused_ffn(torch)
     rows["splash_attention"] = check_splash(torch)
@@ -1504,7 +1643,9 @@ def main() -> int:
                 "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                 "library_ms": head["library_ms"],
-                **{key: head[key] for key in ("eager_chain_ms", "kernel_ms_back_to_back",
+                **{key: head[key] for key in ("device_ms", "library_device_ms", "host_ms",
+                                              "fp32_floor_ms", "eager_chain_ms",
+                                              "kernel_ms_back_to_back",
                                               "eager_chain_ms_back_to_back") if key in head},
                 "shape": head["shape"],
                 "dtype": head["dtype"], "card": card, "shapes": rows[name]}

@@ -8,8 +8,9 @@ and the XLA weight-gradient reduction of its custom VJP) through
 :func:`depthwise_conv1d_plain`, whose autograd is the plain backward.
 
 Backward, as the JAX custom VJP: ``dx`` is the forward kernel on the
-cotangent with the taps flipped in time (:func:`depthwise_conv1d_dx`), ``dw``
-a per-tap f32 reduction over batch and time cast to w's dtype
+cotangent with the taps read in reverse order (:func:`depthwise_conv1d_dx`;
+the kernel takes the order as an argument, so no flipped copy of w is made),
+``dw`` a per-tap f32 reduction over batch and time cast to w's dtype
 (:func:`depthwise_conv1d_dw`). Each of the three counts its own launches.
 
 Layouts follow the JAX package: x ``[B, T, C]``, w ``[k, C]``, 'SAME' zero
@@ -18,6 +19,7 @@ padding in time, odd k. The bias is added by the caller.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -26,8 +28,27 @@ from some_tpu_torch.ops import _build
 # the tap counts the kernels are built for: every config's kernel_size, and 7
 KERNEL_TAPS = (7, 31)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# rows of one block of the weight-gradient kernel (kTileDW in the source)
-_DW_TILE_T = 128
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# the C entry points of csrc/depthwise_conv.cu and their arguments, bound once
+_SIGNATURES = {
+    "some_depthwise_conv1d_fwd": [_PTR] * 3 + [_INT] * 6 + [_PTR],
+    "some_depthwise_conv1d_dw_parts": [_INT] * 5,
+    "some_depthwise_conv1d_dw": [_PTR] * 4 + [_INT] * 6 + [_PTR],
+}
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    """The built kernels with their signatures bound (on first use)."""
+    global _lib
+    if _lib is None:
+        lib = _build.load("depthwise_conv")
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+        _lib = lib
+    return _lib
 
 
 def depthwise_conv1d_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -70,20 +91,18 @@ def _check(x: torch.Tensor, w_shape, w_dtype, w_device) -> None:
         raise ValueError("x and w must be on one device")
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, counter) -> torch.Tensor:
+def _launch(x: torch.Tensor, w: torch.Tensor, counter, flip: bool = False) -> torch.Tensor:
+    """One forward kernel launch; ``flip`` reads the taps in reverse order."""
     _build.refuse_grad("depthwise_conv1d", x, w)
     _check(x, w.shape, w.dtype, w.device)
     x = x.contiguous()
     w = w.contiguous()
     y = torch.empty_like(x)
-    lib = _build.load("depthwise_conv")
-    fn = lib.some_depthwise_conv1d_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = _library().some_depthwise_conv1d_fwd
     B, T, C = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), B, T, C, w.shape[0],
-             _DTYPE_CODES[x.dtype], stream)
+             _DTYPE_CODES[x.dtype], int(flip), stream)
     _build.check(err, "depthwise_conv1d")
     counter.launches += 1
     return y
@@ -91,15 +110,27 @@ def _launch(x: torch.Tensor, w: torch.Tensor, counter) -> torch.Tensor:
 
 def depthwise_conv1d_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The input gradient on the card: the forward kernel on the cotangent
-    ``g`` with the taps flipped (correlation <-> convolution, odd k).
+    ``g`` with the taps in reverse order (correlation <-> convolution, odd
+    k), equal bit for bit to ``depthwise_conv1d_plain(g, w.flip(0))``.
     ``depthwise_conv1d_dx.launches`` counts its launches."""
-    return _launch(g, w.flip(0), depthwise_conv1d_dx)
+    return _launch(g, w, depthwise_conv1d_dx, flip=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_parts(device: int, B: int, T: int, C: int, k: int, code: int) -> int:
+    """How many f32 partials [k, C] the weight gradient writes at this shape
+    on this device (asked of the library once a shape)."""
+    with torch.cuda.device(device):
+        n_parts = _library().some_depthwise_conv1d_dw_parts(B, T, C, k, code)
+    _build.check(min(n_parts, 0), "depthwise_conv1d_dw")
+    return n_parts
 
 
 def depthwise_conv1d_dw(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     """The weight gradient on the card, ``dw[tap, c] = sum_{b,t}
     x[b, t + tap - (k-1)/2, c] * g[b, t, c]`` in f32, cast to x's dtype:
-    the partials kernel and the fixed-order reduce, counted as one launch in
+    the partials kernel (one partial per block, as many blocks as fill the
+    card) and the fixed-order reduce, counted as one launch in
     ``depthwise_conv1d_dw.launches``."""
     _build.refuse_grad("depthwise_conv1d_dw", x, g)
     _check(x, (k, x.shape[2]), g.dtype, g.device)
@@ -108,16 +139,13 @@ def depthwise_conv1d_dw(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tenso
     x = x.contiguous()
     g = g.contiguous()
     B, T, C = x.shape
-    n_parts = B * -(-T // _DW_TILE_T)
+    code = _DTYPE_CODES[x.dtype]
+    n_parts = _dw_parts(x.device.index, B, T, C, k, code)
     partial = torch.empty((n_parts, k, C), dtype=torch.float32, device=x.device)
     dw = torch.empty((k, C), dtype=x.dtype, device=x.device)
-    lib = _build.load("depthwise_conv")
-    fn = lib.some_depthwise_conv1d_dw
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(), B, T, C, k,
-             _DTYPE_CODES[x.dtype], stream)
+    err = _library().some_depthwise_conv1d_dw(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                                              dw.data_ptr(), B, T, C, k, code, n_parts, stream)
     _build.check(err, "depthwise_conv1d_dw")
     depthwise_conv1d_dw.launches += 1
     return dw
@@ -125,7 +153,8 @@ def depthwise_conv1d_dw(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tenso
 
 class DepthwiseConv1dFn(torch.autograd.Function):
     """The kernels as one differentiable op: forward kernel, ``dx`` by the
-    same kernel with flipped taps, ``dw`` by the reduction kernel."""
+    same kernel with the taps in reverse order, ``dw`` by the reduction
+    kernels."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -143,11 +172,11 @@ class DepthwiseConv1dFn(torch.autograd.Function):
 def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """y[b,t,c] = sum_tap x[b, t + tap - (k-1)/2, c] * w[tap, c].
 
-    ``impl='auto'`` runs the CUDA kernels for a CUDA tensor (differentiable
-    through :class:`DepthwiseConv1dFn`) and the plain version for a CPU
-    tensor; ``impl='plain'`` runs the plain version anywhere (the
-    counterpart of the JAX ``impl='xla'``). ``depthwise_conv1d.launches``
-    counts forward kernel launches."""
+    ``impl='auto'`` runs the CUDA kernels for a CUDA tensor (through
+    :class:`DepthwiseConv1dFn` where x or w needs a gradient, else launched
+    directly) and the plain version for a CPU tensor; ``impl='plain'`` runs
+    the plain version anywhere (the counterpart of the JAX ``impl='xla'``).
+    ``depthwise_conv1d.launches`` counts forward kernel launches."""
     if w.shape[0] % 2 != 1:
         raise ValueError("depthwise kernel size must be odd")
     if impl == "plain" or (impl == "auto" and x.device.type == "cpu"):
@@ -156,7 +185,9 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, impl: str = "auto") -> to
         raise ValueError(f"unknown depthwise impl {impl!r} (auto | plain)")
     if x.device.type != "cuda":
         raise RuntimeError(f"no depthwise kernel for device {x.device}")
-    return DepthwiseConv1dFn.apply(x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return DepthwiseConv1dFn.apply(x, w)
+    return _launch(x, w, depthwise_conv1d)
 
 
 depthwise_conv1d.launches = 0

@@ -18,6 +18,8 @@ from chip_smoke import (
     BF16_PLAIN_HELD, fused_ffn_tolerance, grad_tolerance, splash_f32_reference,
     splash_flip_allowance, splash_forward_tolerance,
 )
+from test_torch_depthwise import at_odd_offset
+
 from some_tpu_torch.ops import attention as A
 from some_tpu_torch.ops import depthwise as W
 from some_tpu_torch.ops import fused_ffn as K3
@@ -68,13 +70,24 @@ def test_raw_launches_refuse_grad():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,k", [((2, 300, 256), 31), ((3, 77, 40), 7)])
+@pytest.mark.parametrize("shape,k,offset", [
+    ((2, 300, 256), 31, False), ((3, 77, 40), 7, False),
+    # the main paths' shapes
+    ((8, 512, 512), 31, False), ((1, 6144, 512), 31, False), ((8, 2048, 512), 31, False),
+    # ragged C and T
+    ((2, 1, 300), 31, False), ((1, 37, 520), 31, False), ((2, 1000, 5), 7, False),
+    ((1, 77, 300), 31, False),
+    # x and g at an odd element offset
+    ((2, 300, 512), 31, True), ((1, 1000, 520), 7, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_depthwise_backward_matches_plain_autograd(cuda, shape, k, dtype):
+def test_depthwise_backward_matches_plain_autograd(cuda, shape, k, offset, dtype):
     gen = torch.Generator(device=cuda).manual_seed(3)
-    x = torch.randn(shape, generator=gen, device=cuda).to(dtype).requires_grad_()
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
     w = (torch.randn((k, shape[2]), generator=gen, device=cuda) * 0.1).to(dtype).requires_grad_()
     g = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    if offset:
+        x, g = at_odd_offset(x), at_odd_offset(g)
+    x.requires_grad_()
     counts = (W.depthwise_conv1d.launches, W.depthwise_conv1d_dx.launches,
               W.depthwise_conv1d_dw.launches)
     y = W.depthwise_conv1d(x, w)
