@@ -21,16 +21,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
   4. the infer path: ``some_tpu_torch.infer`` at production geometry
      (configs/midi_conformer.yaml: 8 dual-stream layers, dim 512, 8 x 64
      heads, k=31), random weights from a seed, on synthetic songs, in bf16
-     and in 32-true, through the kernels and through the plain versions;
-     counts kernel launches and compares the notes. Twice: the default
-     kernels (K1, K2), then the opt-in configuration (``fuse_ffn: true``,
-     ``attention_impl: splash``: K1, K3, K4);
+     and in 32-true: the engine's default dispatch (one CUDA graph per
+     bucket, after ``prewarm``), its eager dispatch and the plain versions;
+     counts kernel launches (captures; eager forwards), holds the graph
+     path's probs and bounds bit for bit against the eager path's, counts
+     the hand-written kernels of each bucket's graph (its kernel nodes, as
+     the CUDA driver prints the graph) and of one profiled replay, and compares
+     the notes. Twice: the default kernels (K1, K2), then the opt-in
+     configuration (``fuse_ffn: true``, ``attention_impl: splash``: K1, K3,
+     K4);
   5. the train path: ``Trainer.fit`` at production width with launch
      counts per step and per validation forward, for the default and the
      opt-in configuration, each followed by inference from its checkpoint;
-     a kernel-vs-plain train step for each; an f32 loss that falls.
-Prints one JSON line of kernel measurements, one of path results and,
-last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+     a kernel-vs-plain train step for each; an f32 loss that falls;
+  6. the engine in default bf16: a prewarm of every bucket up to 4096
+     frames at rows 1-8 (its seconds and memory), and the infer CLI's cold
+     case, a fresh process's ``load_engine`` + ``transcribe_file``, under
+     the default dispatch, eager dispatch and capture on first use;
+  7. the port's bench (``some_tpu_torch.bench``), shortened.
+Prints the bench's JSON line, one JSON line of kernel measurements, one of
+path results and, last, ``{"ok": true, "device": {...}}``. Imports nothing
+of JAX.
 
 Every kernel row's ``ms`` and ``library_ms`` is one call's CUDA-event time,
 host work included where the card waits for it. K1's rows add the card's
@@ -467,10 +478,11 @@ def infer_setup(workdir: pathlib.Path):
     """The production config, one checkpoint of random weights from a seed
     (numpy, in the JAX variable layout, carried across), and four synthetic
     songs as WAV files."""
-    from some_tpu_torch.audio.wavio import save_wav
+    from some_tpu_torch.audio.wavio import load_wav, save_wav
     from some_tpu_torch.compat.from_jax import jax_params_to_state_dict, random_jax_variables
     from some_tpu_torch.config import read_full_config
     from some_tpu_torch.inference.base_infer import pick_bucket
+    from some_tpu_torch.inference.pipeline import slice_waveform
     from some_tpu_torch.nn.model import build_midi_extractor
     from some_tpu_torch.utils.checkpoint import save_checkpoint
 
@@ -497,21 +509,266 @@ def infer_setup(workdir: pathlib.Path):
         wavs.append(workdir / f"song{i}.wav")
         save_wav(wavs[-1], song, SR)
     audio_s = sum(len(s) for s in songs) / SR
+    # the chunks the infer CLI makes of the songs (from the WAV files), and their buckets
+    chunks = [c["waveform"] for wav in wavs
+              for c in slice_waveform(load_wav(wav, sr=SR)[0], SR)]
+    buckets = sorted({pick_bucket(len(c) // config["hop_size"] + 1) for c in chunks})
     log(f"songs: {[round(len(s) / SR, 2) for s in songs]} s, {audio_s:.2f} s in all; the long "
-        f"one has {long_frames} frames (bucket {pick_bucket(long_frames)})")
+        f"one has {long_frames} frames (bucket {pick_bucket(long_frames)}); {len(chunks)} "
+        f"chunks in buckets {buckets}")
     return {"config": config, "ckpt": ckpt, "wavs": wavs, "audio_s": audio_s,
-            "blocks": 2 * args["lay"] + 2}
+            "blocks": 2 * args["lay"] + 2, "chunks": chunks, "buckets": buckets}
+
+
+# copies and fills: a replay's static-input copies and output clones, and the
+# zero fills that a capture issues as kernels where eager dispatch memsets
+COPY_OR_FILL = ("memcpy", "memset", "direct_copy_kernel", "fillfunctor")
+# the launch configuration that opens in a kernel node's label of the CUDA driver's DOT print
+LAUNCH = "\\<\\<\\<"
+
+
+def kernel_names(torch, run):
+    """Launches on the card of one ``run()`` by kernel name (torch.profiler),
+    copies and fills (COPY_OR_FILL) left out. A fill before and after the
+    run, each behind a synchronize and 50 ms of idle card, keeps ``run``'s
+    own launches off the ends of the session, where the profiler has
+    dropped records (the first kernel of an eager forward, in one run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1024, device="cuda").fill_(1.0)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        run()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        torch.zeros(1024, device="cuda").fill_(1.0)
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not any(word in e.key.lower() for word in COPY_OR_FILL)}
+
+
+def hand_written(names: dict) -> dict:
+    """Wrapper name -> launches of its hand-written kernel among ``names``."""
+    out = {}
+    for name, count in names.items():
+        group = next((g for key, g in KERNEL_GROUPS if key in name.lower()), None)
+        if group is not None:
+            out[group] = out.get(group, 0) + count
+    return out
+
+
+def kernel_diff(replay: dict, forward: dict) -> dict:
+    """Kernel name -> (replay count, eager forward count), where they differ.
+    Kept as a record, not a check: torch.profiler loses or adds a record
+    now and then (a replay one launch of a PyTorch elementwise kernel over
+    an eager forward in some comparisons, an eager forward's cuFFT kernel
+    missing in one), so the check is ``graph_kernel_nodes``."""
+    return {k: (replay.get(k, 0), forward.get(k, 0)) for k in set(replay) | set(forward)
+            if replay.get(k, 0) != forward.get(k, 0)}
+
+
+def profiled_replay(torch, engine, staged, per_forward: dict, sessions: int = 5):
+    """``kernel_names`` of one replay of a captured bucket, and the sessions
+    it took: torch.profiler at times loses a run of a graph replay's kernel
+    records, hand-written ones among them (16 of the 18 K1 and of the 18 K2
+    in one replay on an H100 whose outputs matched eager dispatch bit for
+    bit), so a session whose hand-written counts fall short of
+    ``per_forward`` is profiled again, at most ``sessions`` times;
+    ``graph_kernel_nodes`` counts the graph's kernels without the
+    profiler."""
+    for session in range(1, sessions + 1):
+        names = kernel_names(torch, lambda: engine.run_bucket_staged(*staged))
+        if hand_written(names) == per_forward:
+            break
+    return names, session
+
+
+def graph_kernel_nodes(torch, engine, audio, mask) -> dict:
+    """The kernel nodes of a bucket's graph by name, counted in the graph
+    itself: the bucket is captured again with its cudaGraph_t kept
+    (``CUDAGraph(keep_graph=True)``) and printed by the CUDA driver
+    (``cuGraphDebugDotPrint``, verbose), one line a kernel node; the
+    engine's own graph for the bucket is put back after."""
+    import ctypes
+
+    class KeptGraph(torch.cuda.CUDAGraph):
+        def __new__(cls, keep_graph=False):
+            return super().__new__(cls, True)
+
+        def __init__(self, keep_graph=False):
+            super().__init__(True)
+
+    key = (engine.wire, *mask.shape)
+    saved = engine._graphs.pop(key, None)
+    plain_graph, torch.cuda.CUDAGraph = torch.cuda.CUDAGraph, KeptGraph
+    try:
+        engine.run_bucket(audio, mask)
+    finally:
+        torch.cuda.CUDAGraph = plain_graph
+    kept = engine._graphs.pop(key)
+    if saved is not None:
+        engine._graphs[key] = saved
+    driver = ctypes.CDLL("libcuda.so.1")
+    driver.cuGraphDebugDotPrint.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint]
+    driver.cuGraphDebugDotPrint.restype = ctypes.c_int
+    with tempfile.TemporaryDirectory(prefix="some_tpu_torch_graph_") as tmp:
+        dot = pathlib.Path(tmp) / "graph.dot"
+        err = driver.cuGraphDebugDotPrint(kept.graph.raw_cuda_graph(), str(dot).encode(), 1)
+        if err != 0:
+            raise RuntimeError(f"cuGraphDebugDotPrint: CUDA driver error {err}")
+        text = dot.read_text()
+    counts = {}
+    # a kernel node's label ends "| <mangled name>\<\<\<{grid},block,smem\>\>\>}"
+    for line in text.splitlines():
+        if LAUNCH in line:
+            name = line.split(LAUNCH)[0].rsplit("|", 1)[-1].strip()
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def dispatch_check(torch, graph, eager, chunks, per_forward: dict, label: str) -> dict:
+    """The graph path against the eager path on every bucket group of
+    ``chunks``: probs and bounds bit for bit, note counts, durations and
+    rests exactly, note_midi to f32 rounding (the decode's float index_add_
+    is atomic on CUDA). Then, for each group, its graph's kernel nodes
+    (``graph_kernel_nodes``) hold exactly ``per_forward`` hand-written
+    kernels and no other: one for each module that has a kernel, so none
+    ran its plain version; and one profiled replay (``profiled_replay``)
+    runs those, its kernels beside one eager forward's (``kernel_diff``)."""
+    groups, _ = graph.bucket_groups(chunks)
+    worst_midi = 0.0
+    for _, audio, mask in groups:
+        got = graph.run_bucket_staged(*graph.stage_inputs(audio, mask), frames=True)
+        want = eager.run_bucket_staged(*eager.stage_inputs(audio, mask), frames=True)
+        for key in ("probs", "bounds", "n_notes", "note_dur", "note_rest"):
+            if not torch.equal(got[key], want[key]):
+                raise AssertionError(f"{label}: graph vs eager {key} differ at bucket "
+                                     f"{tuple(mask.shape)}: max |d| "
+                                     f"{float((got[key].float() - want[key].float()).abs().max())}")
+        worst_midi = max(worst_midi, float((got["note_midi"] - want["note_midi"]).abs().max()))
+    if worst_midi > 1e-3:
+        raise AssertionError(f"{label}: graph vs eager note_midi differ by {worst_midi}")
+    kernels = []
+    for _, audio, mask in groups:
+        nodes = graph_kernel_nodes(torch, graph, audio, mask)
+        if hand_written(nodes) != per_forward:
+            raise AssertionError(f"{label}: the graph of bucket {tuple(mask.shape)} holds "
+                                 f"hand-written kernels {hand_written(nodes)}, want {per_forward}")
+        replay, sessions = profiled_replay(torch, graph, graph.stage_inputs(audio, mask),
+                                           per_forward)
+        if hand_written(replay) != per_forward:
+            raise AssertionError(f"{label}: a profiled replay of bucket {tuple(mask.shape)} ran "
+                                 f"hand-written kernels {hand_written(replay)} in {sessions} "
+                                 f"sessions, want {per_forward}")
+        staged_eager = eager.stage_inputs(audio, mask)
+        forward = kernel_names(torch, lambda: eager.run_bucket_staged(*staged_eager))
+        kernels.append({"shape": list(mask.shape), "graph_kernel_nodes": sum(nodes.values()),
+                        "replay": sum(replay.values()), "profile_sessions": sessions,
+                        "forward": sum(forward.values()), "hand_written": hand_written(replay),
+                        "replay_vs_forward": kernel_diff(replay, forward)})
+    return {"groups": len(groups), "max_note_midi_diff": worst_midi,
+            "replay_vs_forward": kernels}
+
+
+def timed_prewarm(torch, engine, buckets, rows=(1, 2, 3, 4, 6, 8)):
+    """``engine.prewarm(buckets, rows)`` from an emptied allocator cache:
+    (programs, seconds, GiB reserved after it, GiB still reserved once
+    ``empty_cache`` has released the cached blocks outside the graphs'
+    pool, such as the warm-ups')."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    n = engine.prewarm(buckets, rows=rows)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    grown = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
+    torch.cuda.empty_cache()
+    held = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
+    if engine.graphs_captured != n:
+        raise AssertionError(f"prewarm counted {n} programs, captured "
+                             f"{engine.graphs_captured} graphs")
+    return n, seconds, grown, held
+
+
+def full_prewarm(torch, model, max_frames: int = 4096) -> dict:
+    """A fresh engine's prewarm of every frame bucket up to ``max_frames`` at
+    rows 1-8 (the row buckets 1, 2, 3, 4, 6, 8): 66 graphs in one memory
+    pool, their seconds and the memory they hold."""
+    from some_tpu_torch.infer import load_engine
+    from some_tpu_torch.inference.base_infer import DEFAULT_BUCKETS
+
+    engine = load_engine(model, device="cuda", quiet=True)
+    buckets = [b for b in DEFAULT_BUCKETS if b <= max_frames]
+    n, seconds, grown, held = timed_prewarm(torch, engine, buckets, rows=range(1, 9))
+    log(f"prewarm of buckets {buckets} x rows 1-8: {n} graphs in {seconds:.2f} s, "
+        f"{grown:.2f} GiB reserved ({held:.2f} GiB after empty_cache)")
+    del engine
+    torch.cuda.empty_cache()
+    return {"buckets": buckets, "graphs": n, "prewarm_s": seconds, "reserved_gib": grown,
+            "held_gib": held}
+
+
+# Python run on the cold process's engine after its load: the dispatches
+# that the cold CLI run is timed under
+COLD_DISPATCH = {
+    "graph": "",  # the default: a bucket's second run captures its graph
+    "eager": "from some_tpu_torch.inference.base_infer import set_dispatch\n"
+             "set_dispatch(engine, 'eager')",
+    "first_use": "engine.CAPTURE_ON_VISIT = 1",  # capture at a bucket's first run
+}
+
+
+def cold_cli(torch, model, wav, workdir: pathlib.Path, reps: int = 2) -> dict:
+    """The infer CLI's own case: a fresh process's ``load_engine`` +
+    ``transcribe_file`` of one WAV (``bench.cold_file``, timed inside the
+    process), under each of COLD_DISPATCH, ``reps`` times each in turns."""
+    from some_tpu_torch.audio.wavio import load_wav
+    from some_tpu_torch.bench import cold_file
+
+    audio_s = len(load_wav(wav, sr=SR)[0]) / SR
+    torch.cuda.empty_cache()
+    order = list(COLD_DISPATCH) + list(COLD_DISPATCH)[::-1]
+    runs = {mode: [] for mode in COLD_DISPATCH}
+    for i in range(reps):
+        for mode in order[:len(COLD_DISPATCH)] if i % 2 == 0 else order[len(COLD_DISPATCH):]:
+            run = cold_file(model, wav, workdir / f"cold-{mode}-{i}.mid", device="cuda",
+                            prelude=COLD_DISPATCH[mode])
+            runs[mode].append(dict(run, rtf=audio_s / run["file_s"]))
+    log(f"cold CLI ({audio_s:.2f} s of audio, a fresh process each): " + "; ".join(
+        f"{mode} file s {[round(r['file_s'], 3) for r in rs]} (load s "
+        f"{[round(r['load_s'], 2) for r in rs]}, {rs[0]['forwards']} forwards, "
+        f"{rs[0]['graphs']} graphs)" for mode, rs in runs.items()))
+    if any(r["graphs"] for r in runs["eager"]) or any(
+            r["graphs"] != r["forwards"] for r in runs["first_use"]):
+        raise AssertionError(f"cold CLI: a dispatch did not hold: {runs}")
+    return {"audio_s": audio_s, "runs": runs}
 
 
 def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False):
     """The infer CLI's path (``load_engine`` + ``transcribe_file``) in bf16 and
-    32-true, through the kernels and through the plain versions (the same
-    config with the test-only ``impl`` switches at 'plain'): launches per
-    forward of every kernel, note F1 kernel vs plain (1.0 in f32, >= 0.95 in
-    bf16), RTF first and warm, peak memory and the device's busy share.
-    ``opt_in`` adds ``fuse_ffn: true`` and ``attention_impl: splash``."""
+    32-true, three ways:
+
+    * graph, the default dispatch and the main path: from counts at 0, a
+      fresh engine's ``prewarm`` of the songs' buckets (its time, graphs and
+      the memory they reserve) and a first pass, which captures nothing
+      more; launches = 2 x per forward x graphs (each capture's warm-up and
+      the capture itself: a replay calls no wrapper);
+    * eager (the test-only ``set_dispatch``): launches = per forward x
+      forwards;
+    * plain (the test-only ``impl`` switches at 'plain', eager).
+
+    Then: warm passes of graph and eager in turns (g e e g g e) with a
+    profiled pass of each (device ms, busy share); ``dispatch_check`` (graph
+    vs eager bit for bit, kernels of a replay); note F1 graph vs plain (1.0
+    in f32, >= 0.95 in bf16). ``opt_in`` adds ``fuse_ffn: true`` and
+    ``attention_impl: splash``."""
     from some_tpu_torch.config import save_yaml
     from some_tpu_torch.infer import load_engine, transcribe_file
+    from some_tpu_torch.inference.base_infer import set_dispatch
     from some_tpu_torch.nn.conformer import set_kernel_impl
     from some_tpu_torch.utils.midi_file import MidiFile, midi_notes_to_arrays
     from some_tpu_torch.utils.note_f1 import note_f1
@@ -537,38 +794,77 @@ def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False):
         torch.cuda.synchronize()
         return paths, time.perf_counter() - t0
 
-    result = {}
-    main_launches = None
+    def check_launches(label, launched, want):
+        want = {name: want.get(name, 0) for name in launched}
+        if launched != want:
+            raise AssertionError(f"{tag} {label}: launches {launched}, want {want}")
+
+    def f1s(ref, got):
+        return [note_f1(midi_notes_to_arrays(MidiFile.load(a)),
+                        midi_notes_to_arrays(MidiFile.load(b)),
+                        onset_tolerance=0.05, pitch_tolerance=0.5).f1 for a, b in zip(ref, got)]
+
+    result, launches = {}, {}
     for precision in ("bf16", "32-true"):
-        engine = load_engine(dirs[precision], device="cuda", quiet=True)
-        engine.forwards = 0
-        torch.cuda.reset_peak_memory_stats()
+        # the main path: graphs, from counts at 0 through prewarm and a first pass
         reset_counts()
-        midis, first_s = run_pass(engine, f"{precision}-kernel")
-        launched = read_counts()
-        forwards = engine.forwards
-        log(f"{tag} {precision} kernel path: {forwards} forwards, launches "
-            f"{ {n: c for n, c in launched.items() if c} }")
-        want = {name: per_forward.get(name, 0) * forwards for name in launched}
-        if launched != want or forwards == 0:
-            raise AssertionError(f"{tag} {precision}: launches {launched} for {forwards} "
-                                 f"forwards, want {per_forward} per forward and no other")
-        if main_launches is None:
-            main_launches = launched
+        graph = load_engine(dirs[precision], device="cuda", quiet=True)
+        n_prewarm, prewarm_s, graph_gib, graph_held_gib = timed_prewarm(
+            torch, graph, setup["buckets"])
+        if graph.graphs_captured != n_prewarm:
+            raise AssertionError(f"{tag} {precision}: prewarm counted {n_prewarm} programs, "
+                                 f"captured {graph.graphs_captured} graphs")
+        torch.cuda.reset_peak_memory_stats()
+        midis, first_s = run_pass(graph, f"{precision}-graph")
+        if graph.graphs_captured != n_prewarm:
+            raise AssertionError(f"{tag} {precision}: traffic captured "
+                                 f"{graph.graphs_captured - n_prewarm} graphs after prewarm")
+        graph_launched = read_counts()
+        check_launches(f"{precision} graph path", graph_launched,
+                       {n: 2 * c * n_prewarm for n, c in per_forward.items()})
         notes = [len(MidiFile.load(m).notes()) for m in midis]
         if min(notes) == 0:
             raise AssertionError(f"{tag} {precision}: a MIDI file with no notes: {notes}")
-        warm = [run_pass(engine, f"{precision}-warm")[1] for _ in range(3)]
+        log(f"{tag} {precision} graph path: prewarm {n_prewarm} graphs of buckets "
+            f"{setup['buckets']} in {prewarm_s:.2f} s, {graph_gib:.2f} GiB reserved "
+            f"({graph_held_gib:.2f} GiB after empty_cache); first "
+            f"pass {graph.forwards - n_prewarm} replays, launches "
+            f"{ {n: c for n, c in graph_launched.items() if c} } (captures only)")
+
+        reset_counts()
+        eager = load_engine(dirs[precision], device="cuda", quiet=True)
+        set_dispatch(eager, "eager")
+        eager_midis, eager_first_s = run_pass(eager, f"{precision}-eager")
+        eager_launched = read_counts()
+        if eager.forwards == 0:
+            raise AssertionError(f"{tag} {precision}: the eager pass ran no forward")
+        check_launches(f"{precision} eager path", eager_launched,
+                       {n: c * eager.forwards for n, c in per_forward.items()})
+        log(f"{tag} {precision} eager path: {eager.forwards} forwards, launches "
+            f"{ {n: c for n, c in eager_launched.items() if c} }")
+
+        warm = {"graph": [], "eager": []}
+        for name in ("graph", "eager", "eager", "graph", "graph", "eager"):
+            engine = graph if name == "graph" else eager
+            warm[name].append(run_pass(engine, f"{precision}-{name}-warm")[1])
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        profiled = profile_pass(torch, lambda: run_pass(engine, f"{precision}-profiled"))
-        profiled["busy_share_of_warm_wall"] = (profiled["device_ms"] / 1e3
-                                               / statistics.median(warm))
-        log(f"{tag} {precision} profile: " + json.dumps(profiled))
-        del engine
+        profiles = {}
+        for name, engine in (("graph", graph), ("eager", eager)):
+            prof = profile_pass(torch, lambda: run_pass(engine, f"{precision}-{name}-prof"))
+            prof["busy_share_of_warm_wall"] = (prof["device_ms"] / 1e3
+                                               / statistics.median(warm[name]))
+            profiles[name] = prof
+            log(f"{tag} {precision} {name} profile: " + json.dumps(prof))
+        dispatch = dispatch_check(torch, graph, eager, setup["chunks"], per_forward,
+                                  f"{tag} {precision}")
+        log(f"{tag} {precision} graph vs eager: " + json.dumps(dispatch))
+        graph_vs_eager_f1 = f1s(eager_midis, midis)
+        del graph, eager
         torch.cuda.empty_cache()
 
         plain = load_engine(dirs[precision], device="cuda", quiet=True)
         set_kernel_impl(plain.model, "plain")
+        set_dispatch(plain, "eager")
         reset_counts()
         plain_midis, plain_first_s = run_pass(plain, f"{precision}-plain")
         plain_warm = [run_pass(plain, f"{precision}-plain-warm")[1] for _ in range(3)]
@@ -577,29 +873,34 @@ def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False):
         del plain
         torch.cuda.empty_cache()
 
-        f1s = []
-        for a, b in zip(plain_midis, midis):
-            f1s.append(note_f1(midi_notes_to_arrays(MidiFile.load(a)),
-                               midi_notes_to_arrays(MidiFile.load(b)),
-                               onset_tolerance=0.05, pitch_tolerance=0.5).f1)
+        f1 = f1s(plain_midis, midis)
         need = 1.0 if precision == "32-true" else 0.95
-        log(f"{tag} {precision}: notes per song {notes}; kernel-vs-plain note F1 {f1s} "
-            f"(need >= {need}); RTF first {audio_s / first_s:.2f}x, warm median "
-            f"{audio_s / statistics.median(warm):.2f}x; plain path first "
-            f"{audio_s / plain_first_s:.2f}x, warm median "
-            f"{audio_s / statistics.median(plain_warm):.2f}x; device busy "
-            f"{profiled['busy_share_of_warm_wall']:.3f} of the warm median wall; peak "
-            f"{peak_gb:.2f} GiB")
-        if min(f1s) < need:
-            raise AssertionError(f"{tag} {precision}: kernel-vs-plain note F1 {f1s} below {need}")
+        warm["plain"] = plain_warm
+        rtf = {name: audio_s / statistics.median(times) for name, times in warm.items()}
+        log(f"{tag} {precision}: notes per song {notes}; graph-vs-plain note F1 {f1} (need >= "
+            f"{need}), graph-vs-eager {graph_vs_eager_f1}; RTF first graph "
+            f"{audio_s / first_s:.2f}x (after prewarm) / eager {audio_s / eager_first_s:.2f}x, "
+            f"warm median graph {rtf['graph']:.2f}x / eager {rtf['eager']:.2f}x / plain "
+            f"{rtf['plain']:.2f}x; device ms "
+            f"graph {profiles['graph']['device_ms']:.1f} / eager "
+            f"{profiles['eager']['device_ms']:.1f}; busy graph "
+            f"{profiles['graph']['busy_share_of_warm_wall']:.3f} / eager "
+            f"{profiles['eager']['busy_share_of_warm_wall']:.3f} of the warm median wall; "
+            f"peak {peak_gb:.2f} GiB")
+        if min(f1) < need:
+            raise AssertionError(f"{tag} {precision}: graph-vs-plain note F1 {f1} below {need}")
         result[precision] = {
-            "forwards": forwards, "launches": launched, "notes": notes, "f1_vs_plain": f1s,
-            "audio_s": audio_s, "first_s": first_s, "warm_s": warm,
-            "rtf_first": audio_s / first_s, "rtf_warm_median": audio_s / statistics.median(warm),
-            "plain_first_s": plain_first_s, "plain_warm_s": plain_warm,
-            "plain_rtf_warm_median": audio_s / statistics.median(plain_warm),
-            "peak_gib": peak_gb, "profile": profiled}
-    return result, main_launches
+            "notes": notes, "f1_vs_plain": f1, "f1_graph_vs_eager": graph_vs_eager_f1,
+            "audio_s": audio_s, "prewarm_graphs": n_prewarm, "prewarm_s": prewarm_s,
+            "graph_reserved_gib": graph_gib, "graph_held_gib": graph_held_gib,
+            "first_s": first_s, "eager_first_s": eager_first_s,
+            "plain_first_s": plain_first_s, "warm_s": warm,
+            "rtf_warm_median": rtf, "graph_launches": graph_launched,
+            "eager_launches": eager_launched, "peak_gib": peak_gb, "profile": profiles,
+            "dispatch_check": dispatch}
+        launches.setdefault("graph", graph_launched)
+        launches.setdefault("eager", eager_launched)
+    return result, launches
 
 
 # ---- launch counts; the training slice ----
@@ -1602,12 +1903,27 @@ def main() -> int:
         setup = infer_setup(pathlib.Path(tmp))
         for opt_in in (False, True):
             tag = "opt_in" if opt_in else "default"
-            results[f"infer_{tag}"], launches[f"infer_{tag}"] = main_path(
+            results[f"infer_{tag}"], infer_launches = main_path(
                 torch, pathlib.Path(tmp), setup, opt_in)
+            launches[f"infer_{tag}"] = infer_launches["graph"]
+            launches[f"infer_{tag}_eager"] = infer_launches["eager"]
             results[f"train_{tag}"], launches[f"train_{tag}"] = train_path(
                 torch, pathlib.Path(tmp), 8, opt_in)
             results[f"kernel_vs_plain_train_step_{tag}"] = kernel_vs_plain_step(torch, opt_in)
+        # after every profiled replay: with these 66 graphs captured earlier
+        # in the process, torch.profiler has missed a kernel record of a replay
+        model = pathlib.Path(tmp) / "default-bf16" / "model.pt"
+        results["full_prewarm"] = full_prewarm(torch, model)
+        results["cold_cli"] = cold_cli(torch, model, setup["wavs"][0], pathlib.Path(tmp))
     results["f32_overfit"] = overfit_f32(torch)
+
+    # the port's bench, shortened (2 batches a round, a 4-phrase song)
+    from some_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    bench_line = bench.measure("cuda", iters=2, phrases=4)
+    log(f"bench (SOME_BENCH_ITERS=2, SOME_BENCH_PHRASES=4) in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
 
     flash_py = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     splash_py = "jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py"
@@ -1650,6 +1966,7 @@ def main() -> int:
                 "shape": head["shape"],
                 "dtype": head["dtype"], "card": card, "shapes": rows[name]}
 
+    print(json.dumps(bench_line), flush=True)
     print(json.dumps({"kernels": [entry(*k) for k in kernels]}), flush=True)
     print(json.dumps(dict(results, card=card)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

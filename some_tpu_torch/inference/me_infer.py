@@ -1,16 +1,16 @@
 """Continuous-model inference: wire -> log-mel -> conformer -> gaussian decode.
 
 Counterpart of ``some_tpu/inference/me_infer.py``. Everything from the wire
-array to the fixed-shape note arrays runs on the engine's device; the host
-slices each row to its note count (``assemble``) and repairs the seams of
-split chunks (``merge_parts``).
+array to the fixed-shape note arrays runs on the engine's device, on the card
+as one CUDA graph per bucket (``base_infer``); the host slices each row to
+its note count (``assemble``) and repairs the seams of split chunks
+(``merge_parts``).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
-import torch
 
 from some_tpu_torch.audio.wire import decode_wire_device
 from some_tpu_torch.inference.base_infer import BaseInference
@@ -21,6 +21,9 @@ from some_tpu_torch.ops.melspec import LogMelSpec
 
 
 class MIDIExtractionInference(BaseInference):
+    OUTPUT_KEYS = ("note_midi", "note_dur", "note_rest", "n_notes")
+    FRAME_KEYS = ("probs", "bounds")
+
     def __init__(self, config: dict, model_path, **kwargs):
         super().__init__(config, model_path, **kwargs)
         self.midi_min = config["midi_min"]
@@ -30,11 +33,21 @@ class MIDIExtractionInference(BaseInference):
         # max |delta midi| (semitones) for joining the voiced note that spans
         # a bucket-boundary split
         self.seam_merge_tol = float(config.get("seam_merge_midi_tol", 0.5))
+        self._rebuild_wire_pipeline()
+
+    def _rebuild_wire_pipeline(self) -> None:
+        """The mel frontend in the wire's domain (factor f = 1 leaves it
+        native): sample rate, window and hop divided by f keep every bin
+        frequency, filterbank weight and frame time; ``mag_scale`` f makes
+        up for the shorter window. Called at construction and on every flip
+        of the auto wire policy, which also drops the captured graphs."""
+        super()._rebuild_wire_pipeline()
+        config, f = self.config, self.wire_factor
         self.mel = LogMelSpec(
-            n_mels=config["units_dim"], sample_rate=config["audio_sample_rate"],
-            win_length=config["win_size"], hop_length=config["hop_size"],
+            n_mels=config["units_dim"], sample_rate=config["audio_sample_rate"] // f,
+            win_length=config["win_size"] // f, hop_length=config["hop_size"] // f,
             fmin=config["fmin"], fmax=config["fmax"],
-            method=config.get("mel_method", "rfft"), device=self.device)
+            method=config.get("mel_method", "rfft"), device=self.device, mag_scale=float(f))
 
     def _decode(self, probs, bounds, mask):
         maskf = mask.to(probs.dtype)
@@ -48,13 +61,13 @@ class MIDIExtractionInference(BaseInference):
         return {"note_midi": note_midi, "note_dur": note_dur,
                 "note_rest": ~note_mask, "n_notes": frame2note.amax(dim=1)}
 
-    @torch.inference_mode()
-    def run_bucket_staged(self, audio, mask) -> dict:
-        audio = decode_wire_device(audio, n_samples=mask.shape[1] * self.hop - 1)
+    def _device_pipeline(self, audio, mask) -> dict:
+        """Wire rows -> notes: nothing here waits for the card or depends on
+        the data for a shape, so a bucket's run captures as one graph."""
+        audio = decode_wire_device(audio, self.wire, n_samples=mask.shape[1] * self.hop - 1)
         units = self.mel(audio)
         probs, bounds = self.model(units, mask=mask, sig=True)
-        self.forwards += 1
-        return self._decode(probs, bounds, mask)
+        return dict(self._decode(probs, bounds, mask), probs=probs, bounds=bounds)
 
     def assemble(self, device_out: dict, n_frames: int) -> Dict[str, np.ndarray]:
         n = int(device_out["n_notes"])

@@ -6,6 +6,10 @@ trimmed to the mel filterbank's support (the removed bins carry zero
 weight) -> mel matmul -> log(clamp). The JAX package computes this outside
 Pallas, so ``torch.fft.rfft`` and a plain matmul are its counterparts. The
 ``dft`` method is not ported yet.
+
+``mag_scale`` multiplies the window: the half-rate wire analyses audio
+decimated by a factor f with a window f times shorter, whose periodic Hann
+sums to 1/f of the full one, so f restores the magnitudes exactly.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ class LogMelSpec:
 
     def __init__(self, n_mels: int, sample_rate: int, win_length: int, hop_length: int,
                  fmin: float = 0, fmax: float | None = None, clamp: float = 1e-5,
-                 method: str = "rfft", device: torch.device | str = "cpu"):
+                 method: str = "rfft", device: torch.device | str = "cpu",
+                 mag_scale: float = 1.0):
         if method != "rfft":
             raise NotImplementedError(
                 f"mel_method {method!r} is not ported yet (rfft only): see ROADMAP.md")
@@ -29,7 +34,8 @@ class LogMelSpec:
         self.hop_length = hop_length
         self.n_mels = n_mels
         self.clamp = clamp
-        self.window = torch.tensor(hann_window(win_length), dtype=torch.float32, device=device)
+        self.window = torch.tensor(hann_window(win_length) * float(mag_scale),
+                                   dtype=torch.float32, device=device)
         basis = mel_filterbank(sample_rate, self.n_fft, n_mels, fmin, fmax)
         used = np.nonzero(basis.any(axis=0))[0]
         self._k_lo, self._k_hi = ((int(used[0]), int(used[-1]) + 1) if len(used)

@@ -90,18 +90,22 @@ def test_wire_encode_and_decode_exact(wire):
     enc = encode_wire(wave, wire)
     np.testing.assert_array_equal(enc, jax_encode_wire(wave, wire))
     want = np.asarray(jax_decode_wire(enc, wire=wire, n_samples=999))
-    got = decode_wire_device(torch.from_numpy(enc), n_samples=999).numpy()
+    got = decode_wire_device(torch.from_numpy(enc), wire, n_samples=999).numpy()
     assert got.dtype == np.float32
     np.testing.assert_array_equal(got, want)
     silence = silence_buffer(wire, 3, 10)
-    assert decode_wire_device(torch.from_numpy(silence)).abs().max() == 0
+    assert decode_wire_device(torch.from_numpy(silence), wire).abs().max() == 0
 
 
 def test_unported_wires_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        encode_wire(np.zeros(4, np.float32), "mulaw8")
-    with pytest.raises(NotImplementedError):
-        decode_wire_device(torch.zeros(4, dtype=torch.uint8))
+    """Every wire of the JAX package is ported; a name outside them raises,
+    and so does a wire tensor of another dtype than its wire's."""
+    with pytest.raises(ValueError, match="unknown transfer_dtype"):
+        encode_wire(np.zeros(4, np.float32), "mulaw16")
+    with pytest.raises(ValueError, match="unknown transfer_dtype"):
+        decode_wire_device(torch.zeros(4, dtype=torch.uint8), "mulaw16")
+    with pytest.raises(TypeError, match="must be torch.int16"):
+        decode_wire_device(torch.zeros(4, dtype=torch.uint8), "int16")
 
 
 def _song(seed):
