@@ -34,11 +34,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
      counts per step and per validation forward, for the default and the
      opt-in configuration, each followed by inference from its checkpoint;
      a kernel-vs-plain train step for each; an f32 loss that falls;
-  6. the engine in default bf16: a prewarm of every bucket up to 4096
+  6. what users bring: ``quantize: int8`` (one cuBLASLt int8 product held
+     bit for bit against int64 and timed against bf16; the infer path as in
+     4 for the default configuration in bf16 and f32 and the opt-in one in
+     bf16, whose graphs hold no K3; notes also against the unquantized
+     engine; resident weight bytes); ``mel_method: dft`` (its log-mel
+     against rfft on the card, notes, the mels' device time); the engine's
+     oversize split (frame buckets cut at 256) graph vs eager; the discrete
+     model (configs/discrete.yaml, 129 classes) through the infer CLI and
+     ``Trainer.fit`` in bf16 with launch counts per step; a reference
+     Lightning checkpoint (tests/torch_oracle.py's ``OracleModel`` at
+     production width) through ``load_engine``, its f32 forward against
+     ``OracleModel``'s;
+  7. the engine in default bf16: a prewarm of every bucket up to 4096
      frames at rows 1-8 (its seconds and memory), and the infer CLI's cold
      case, a fresh process's ``load_engine`` + ``transcribe_file``, under
      the default dispatch, eager dispatch and capture on first use;
-  7. the port's bench (``some_tpu_torch.bench``), shortened.
+  8. the port's bench (``some_tpu_torch.bench``), shortened.
+Each phase's seconds are printed, and the total.
 Prints the bench's JSON line, one JSON line of kernel measurements, one of
 path results and, last, ``{"ok": true, "device": {...}}``. Imports nothing
 of JAX.
@@ -60,6 +73,7 @@ import time
 
 import numpy as np
 
+START = time.perf_counter()
 REPO = pathlib.Path(__file__).resolve().parent
 SR = 44100
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
@@ -748,9 +762,10 @@ def cold_cli(torch, model, wav, workdir: pathlib.Path, reps: int = 2) -> dict:
     return {"audio_s": audio_s, "runs": runs}
 
 
-def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False):
-    """The infer CLI's path (``load_engine`` + ``transcribe_file``) in bf16 and
-    32-true, three ways:
+def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False,
+              quantize: bool = False, precisions=("bf16", "32-true")):
+    """The infer CLI's path (``load_engine`` + ``transcribe_file``) in each of
+    ``precisions`` (bf16 and 32-true), three ways:
 
     * graph, the default dispatch and the main path: from counts at 0, a
       fresh engine's ``prewarm`` of the songs' buckets (its time, graphs and
@@ -765,7 +780,15 @@ def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False):
     profiled pass of each (device ms, busy share); ``dispatch_check`` (graph
     vs eager bit for bit, kernels of a replay); note F1 graph vs plain (1.0
     in f32, >= 0.95 in bf16). ``opt_in`` adds ``fuse_ffn: true`` and
-    ``attention_impl: splash``."""
+    ``attention_impl: splash``. ``quantize`` adds ``quantize: int8``: the
+    engine quantizes the weights as it loads them, its graphs hold no K3
+    (a quantized model never fuses its FFNs) and the plain path runs the same
+    int8 products, so graph vs plain note F1 is held to >= 0.95 in f32 too
+    (an ulp between a kernel and its plain version at a .5 code boundary
+    rounds a code to its neighbour); the notes are also held against the
+    unquantized run of
+    the same configuration and precision (its MIDI files, which must exist),
+    and the resident weight bytes are recorded."""
     from some_tpu_torch.config import save_yaml
     from some_tpu_torch.infer import load_engine, transcribe_file
     from some_tpu_torch.inference.base_infer import set_dispatch
@@ -773,17 +796,21 @@ def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False):
     from some_tpu_torch.utils.midi_file import MidiFile, midi_notes_to_arrays
     from some_tpu_torch.utils.note_f1 import note_f1
 
-    tag = "opt-in" if opt_in else "default"
+    base_tag = "opt-in" if opt_in else "default"
+    tag = base_tag + ("-int8" if quantize else "")
     blocks, wavs, audio_s = setup["blocks"], setup["wavs"], setup["audio_s"]
     per_forward = ({"depthwise_conv1d": blocks, "fused_ln_ffn_residual": 2 * blocks,
                     "splash_attention": blocks} if opt_in else
                    {"depthwise_conv1d": blocks, "flash_attention": blocks})
+    if quantize:
+        per_forward.pop("fused_ln_ffn_residual", None)
     dirs = {}
-    for precision in ("bf16", "32-true"):
+    for precision in precisions:
         d = workdir / f"{tag}-{precision}"
         d.mkdir()
         save_yaml(dict(setup["config"], pl_trainer_precision=precision,
-                       **(OPT_IN if opt_in else {})), d / "config.yaml")
+                       **(OPT_IN if opt_in else {}), **({"quantize": "int8"} if quantize else {})),
+                  d / "config.yaml")
         os.symlink(setup["ckpt"], d / "model.pt")
         dirs[precision] = d / "model.pt"
 
@@ -805,10 +832,12 @@ def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False):
                         onset_tolerance=0.05, pitch_tolerance=0.5).f1 for a, b in zip(ref, got)]
 
     result, launches = {}, {}
-    for precision in ("bf16", "32-true"):
+    for precision in precisions:
         # the main path: graphs, from counts at 0 through prewarm and a first pass
         reset_counts()
         graph = load_engine(dirs[precision], device="cuda", quiet=True)
+        if graph.model.quant != ("int8" if quantize else "none"):
+            raise AssertionError(f"{tag} {precision}: the engine's model is {graph.model.quant}")
         n_prewarm, prewarm_s, graph_gib, graph_held_gib = timed_prewarm(
             torch, graph, setup["buckets"])
         if graph.graphs_captured != n_prewarm:
@@ -859,6 +888,7 @@ def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False):
                                   f"{tag} {precision}")
         log(f"{tag} {precision} graph vs eager: " + json.dumps(dispatch))
         graph_vs_eager_f1 = f1s(eager_midis, midis)
+        weight_bytes = graph.weight_bytes
         del graph, eager
         torch.cuda.empty_cache()
 
@@ -874,7 +904,10 @@ def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False):
         torch.cuda.empty_cache()
 
         f1 = f1s(plain_midis, midis)
-        need = 1.0 if precision == "32-true" else 0.95
+        # int8: the kernels and their plain versions agree to f32 rounding,
+        # and a value an ulp apart at a .5 code boundary rounds to the
+        # neighbouring code, so int8 notes move in f32 as bf16 ones do
+        need = 1.0 if precision == "32-true" and not quantize else 0.95
         warm["plain"] = plain_warm
         rtf = {name: audio_s / statistics.median(times) for name, times in warm.items()}
         log(f"{tag} {precision}: notes per song {notes}; graph-vs-plain note F1 {f1} (need >= "
@@ -889,7 +922,14 @@ def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False):
             f"peak {peak_gb:.2f} GiB")
         if min(f1) < need:
             raise AssertionError(f"{tag} {precision}: graph-vs-plain note F1 {f1} below {need}")
-        result[precision] = {
+        extra = {"weight_bytes": weight_bytes}
+        if quantize:
+            unquantized = [workdir / f"{base_tag}-{precision}-graph-{i}.mid"
+                           for i in range(len(wavs))]
+            extra["f1_vs_unquantized"] = f1s(unquantized, midis)
+            log(f"{tag} {precision}: note F1 against the unquantized engine "
+                f"{extra['f1_vs_unquantized']}; resident weights {weight_bytes} bytes")
+        result[precision] = {**extra,
             "notes": notes, "f1_vs_plain": f1, "f1_graph_vs_eager": graph_vs_eager_f1,
             "audio_s": audio_s, "prewarm_graphs": n_prewarm, "prewarm_s": prewarm_s,
             "graph_reserved_gib": graph_gib, "graph_held_gib": graph_held_gib,
@@ -1523,21 +1563,27 @@ def report_tensor_core_kernels(rows, hmma):
                 f"bound ({r['bound_ms']:.4f} ms, {r['bound_by']})")
 
 
-def make_item(rng, n_frames, n_notes, units_dim):
+def make_item(rng, n_frames, n_notes, units_dim, discrete=False):
     """One training item with the fields of tests/test_training.py::make_item:
     random units, a pitch curve, notes of random pitch (a fifth rests) whose
-    durations add up to the frame count, and the frame-to-note alignment."""
+    durations add up to the frame count, and the frame-to-note alignment;
+    ``discrete``: integer pitch classes, rests as class 128, as the quantized
+    binarizer writes them."""
     note_dur = rng.multinomial(n_frames - n_notes, np.ones(n_notes) / n_notes) + 1
-    return {"units": rng.standard_normal((n_frames, units_dim)).astype(np.float32),
+    item = {"units": rng.standard_normal((n_frames, units_dim)).astype(np.float32),
             "pitch": rng.uniform(40, 80, n_frames).astype(np.float32),
             "note_dur": note_dur.astype(np.int64),
             "unit2note": np.repeat(np.arange(1, n_notes + 1), note_dur).astype(np.int64),
-            "length": n_frames, "seconds": n_frames * 512 / 44100,
-            "note_midi": rng.uniform(40, 80, n_notes).astype(np.float32),
-            "note_rest": rng.random(n_notes) < 0.2}
+            "length": n_frames, "seconds": n_frames * 512 / 44100}
+    if discrete:
+        midi = rng.integers(40, 80, n_notes).astype(np.int64)
+        midi[rng.random(n_notes) < 0.2] = 128
+        return dict(item, note_midi=midi)
+    return dict(item, note_midi=rng.uniform(40, 80, n_notes).astype(np.float32),
+                note_rest=rng.random(n_notes) < 0.2)
 
 
-def synthetic_items(seed, n, units_dim, lo=600, hi=2000):
+def synthetic_items(seed, n, units_dim, lo=600, hi=2000, discrete=False):
     """``n`` items of ``lo``..``hi`` frames (7-23 s of singing at 86 frames/s),
     a note every 15 to 40 frames."""
     rng = np.random.default_rng(seed)
@@ -1545,16 +1591,17 @@ def synthetic_items(seed, n, units_dim, lo=600, hi=2000):
     for _ in range(n):
         frames = int(rng.integers(lo, hi + 1))
         items.append(make_item(rng, frames, max(4, frames // int(rng.integers(15, 41))),
-                               units_dim))
+                               units_dim, discrete))
     return items
 
 
 def in_memory_task(config, train_items, valid_items, device="cuda"):
-    """The port's MIDIExtractionTask reading in-memory items instead of HDF5
-    (the pattern of tests/test_training.py's RecordingTask)."""
-    from some_tpu_torch.training.me_task import MIDIExtractionTask
+    """The port's task of ``config`` (``train.TASKS``) reading in-memory
+    items instead of HDF5 (the pattern of tests/test_training.py's
+    RecordingTask)."""
+    from some_tpu_torch.train import TASKS
 
-    class InMemoryTask(MIDIExtractionTask):
+    class InMemoryTask(TASKS[config["task_cls"]]):
         def load_datasets(self):
             sizes = lambda items: np.array([i["length"] for i in items])
             return (train_items, sizes(train_items)), (valid_items, sizes(valid_items))
@@ -1588,15 +1635,16 @@ def in_memory_task(config, train_items, valid_items, device="cuda"):
     return task
 
 
-def production_config(**overrides):
+def production_config(name="midi_conformer.yaml", **overrides):
     from some_tpu_torch.config import read_full_config
 
-    config = read_full_config(REPO / "configs" / "midi_conformer.yaml")
+    config = read_full_config(REPO / "configs" / name)
     config.update(overrides)
     return config
 
 
-def train_path(torch, workdir: pathlib.Path, n_steps: int, opt_in: bool = False):
+def train_path(torch, workdir: pathlib.Path, n_steps: int, opt_in: bool = False,
+               discrete: bool = False):
     """Trainer.fit at production width (configs/midi_conformer.yaml: 8
     dual-stream layers, dim 512, 8 x 64 heads, k 31, bf16, remat on,
     dropout 0.1) on 64 synthetic items of 600-2000 frames, batches of up to
@@ -1605,7 +1653,10 @@ def train_path(torch, workdir: pathlib.Path, n_steps: int, opt_in: bool = False)
     Launches are held per train step and per validation forward. ``opt_in``
     adds ``fuse_ffn: true`` and ``attention_impl: splash``: the steps run
     K4 and no K3 (training runs the unfused FFN, as in JAX), the validation
-    forwards run K3 and K4's inference kernel."""
+    forwards run K3 and K4's inference kernel. ``discrete``: the quantized
+    task of configs/discrete.yaml (3 layers, 129 classes, cross-entropy) in
+    bf16, on items with integer labels; the engine that loads its checkpoint
+    is the argmax one, and its notes must be integer pitches in [0, 127]."""
     from some_tpu_torch.audio.wavio import save_wav
     from some_tpu_torch.config import save_yaml
     from some_tpu_torch.infer import load_engine, transcribe_file
@@ -1613,22 +1664,25 @@ def train_path(torch, workdir: pathlib.Path, n_steps: int, opt_in: bool = False)
     from some_tpu_torch.training.trainer import Trainer
     from some_tpu_torch.utils.midi_file import MidiFile
 
-    tag = "opt-in" if opt_in else "default"
-    config = production_config(val_check_interval=n_steps, num_sanity_val_steps=0,
+    tag = "discrete" if discrete else "opt-in" if opt_in else "default"
+    config = production_config("discrete.yaml" if discrete else "midi_conformer.yaml",
+                               val_check_interval=n_steps, num_sanity_val_steps=0,
                                log_interval=4, max_val_batch_size=1,
-                               **(OPT_IN if opt_in else {}))
+                               **(OPT_IN if opt_in else {}),
+                               **({"pl_trainer_precision": "bf16"} if discrete else {}))
     args = config["midi_extractor_args"]
     blocks = 2 * args["lay"] + 2
     remat_blocks = 2 * args["lay"]
-    log(f"{tag} train path: configs/midi_conformer.yaml, lay {args['lay']} dim {args['dim']} "
+    log(f"{tag} train path: configs/{'discrete' if discrete else 'midi_conformer'}.yaml, lay "
+        f"{args['lay']} dim {args['dim']} "
         f"heads {args['attention_heads']}x{args['attention_heads_dim']} k "
         f"{args['kernel_size']}, {config['pl_trainer_precision']}, remat "
         f"{config.get('use_remat', True)}, dropout {args['conv_drop']}, max "
         f"{config['max_batch_size']} rows x {config['max_batch_frames']} frames, bucket grid "
         f"{config['frame_bucket_grid']}, fuse_ffn {config.get('fuse_ffn', False)}, "
         f"attention_impl {config.get('attention_impl', 'auto')}")
-    train_items = synthetic_items(7, 64, config["units_dim"])
-    valid_items = synthetic_items(8, 3, config["units_dim"])
+    train_items = synthetic_items(7, 64, config["units_dim"], discrete=discrete)
+    valid_items = synthetic_items(8, 3, config["units_dim"], discrete=discrete)
     work = workdir / f"train-{tag}"
     work.mkdir()
     save_yaml(config, work / "config.yaml")
@@ -1703,9 +1757,14 @@ def train_path(torch, workdir: pathlib.Path, n_steps: int, opt_in: bool = False)
     engine = load_engine(ckpt, device="cuda", quiet=True)
     save_wav(workdir / "trained.wav", make_song(4242, phrases=2), SR)
     midi = transcribe_file(engine, workdir / "trained.wav", workdir / f"trained-{tag}.mid")
-    notes = len(MidiFile.load(midi).notes())
-    log(f"infer from the {tag} trained checkpoint {ckpt.name}: {engine.forwards} forwards, "
-        f"{notes} notes in {midi.name}")
+    pitches = [n["note"] for n in MidiFile.load(midi).notes()]
+    notes = len(pitches)
+    if discrete and (type(engine).__name__ != "QuantizedMIDIExtractionInference"
+                     or not all(0 <= p <= 127 for p in pitches)):
+        raise AssertionError(f"the discrete checkpoint loaded into {type(engine).__name__}, "
+                             f"pitches {sorted(set(pitches))}")
+    log(f"infer from the {tag} trained checkpoint {ckpt.name}: {type(engine).__name__}, "
+        f"{engine.forwards} forwards, {notes} notes in {midi.name}")
     del engine
     torch.cuda.empty_cache()
     return {"steps": n_steps, "fit_s": fit_s, "warm_step_ms_median": step_ms,
@@ -1835,6 +1894,343 @@ def overfit_f32(torch, n_steps=30):
     return {"losses": losses, "first5_mean": first, "last5_mean": last}
 
 
+# ---- serving what users bring: int8, the discrete model, the dft mel,
+# reference Lightning files, the oversize split ----
+
+INT8_PEAK_OPS = 1979e12  # H100 SXM int8 tensor cores, dense (the data sheet)
+
+
+def check_int8_products(torch):
+    """One int8 product at the shape of a macaron FFN's first product on a
+    bucket of 8 x 1024 frames ([8192, 512] x [512, 2048]): ``torch._int_mm``
+    (cuBLASLt) equals an int64 product of the same codes bit for bit, and so
+    does ``int8_matmul``'s f32 rescale. Times (CUDA events, one call):
+    ``int8_matmul`` (bf16 out) against the bf16 ``F.linear`` of the same
+    shape, ``torch._int_mm`` alone, ``quantize_activation`` and the whole
+    ``dynamic_int8_dense``; the int8 product's bound."""
+    import torch.nn.functional as F
+    from some_tpu_torch.ops.quant import (
+        dynamic_int8_dense, int8_matmul, quantize_activation, quantize_weight,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    M, K, N = 8192, 512, 2048
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((N, K), generator=gen, device="cuda") * K ** -0.5
+    q, scale = quantize_weight(w.t().cpu().numpy())
+    wq = torch.from_numpy(np.ascontiguousarray(q.T)).cuda()
+    sw = torch.from_numpy(scale).cuda()
+    xq, sx = quantize_activation(x)
+    # the exact product as int64: in float64 on the card every partial sum is
+    # an integer below 2^53 (|sum| <= 127^2 x 512), so no rounding happens
+    exact = torch.matmul(xq.double(), wq.double().t()).long()
+    if not torch.equal(torch._int_mm(xq, wq.t()).long(), exact):
+        raise AssertionError("torch._int_mm differs from the int64 product")
+    got = int8_matmul(xq, sx, wq, sw, torch.float32)
+    if not torch.equal(got, exact.float() * (sx * sw)):
+        raise AssertionError("int8_matmul's rescale differs from the exact product's")
+    wb = w.to(torch.bfloat16)
+    bound_ms, bound_by = bound(M * K + K * N + 2 * M * N + 4 * N, 2 * M * K * N, INT8_PEAK_OPS)
+    row = {"shape": [M, K, N], "bit_for_bit_vs_int64": True,
+           "int8_matmul_ms": median_ms(torch, lambda: int8_matmul(xq, sx, wq, sw,
+                                                                  torch.bfloat16)),
+           "int_mm_ms": median_ms(torch, lambda: torch._int_mm(xq, wq.t())),
+           "quantize_activation_ms": median_ms(torch, lambda: quantize_activation(x)),
+           "dynamic_int8_dense_ms": median_ms(torch, lambda: dynamic_int8_dense(
+               x, wq, sw, torch.bfloat16)),
+           "bf16_linear_ms": median_ms(torch, lambda: F.linear(x, wb)),
+           "int8_bound_ms": bound_ms, "int8_bound_by": bound_by}
+    log("int8 product [8192, 512] x [512, 2048]: torch._int_mm bit for bit with int64, "
+        "the rescale too; " + json.dumps(row))
+    return row
+
+
+def discrete_infer(torch, workdir: pathlib.Path, setup: dict):
+    """The discrete model (configs/discrete.yaml: 3 dual-stream layers, dim
+    512, 8 x 64 heads, k 31, 129 classes, its own precision, 32-true) with
+    seeded weights in the JAX layout, carried across, through the infer CLI
+    on song 0: prewarm of the song's buckets, then ``transcribe_file``
+    (launches = 2 x per forward x graphs); integer pitches in [0, 127];
+    ``dispatch_check`` against an eager engine on the song's chunks (graph
+    vs eager bit for bit, each graph's and a replay's hand-written kernels:
+    8 K1 + 8 K2)."""
+    from some_tpu_torch.audio.wavio import load_wav
+    from some_tpu_torch.compat.from_jax import jax_params_to_state_dict, random_jax_variables
+    from some_tpu_torch.config import save_yaml
+    from some_tpu_torch.inference.base_infer import pick_bucket, set_dispatch
+    from some_tpu_torch.inference.pipeline import slice_waveform
+    from some_tpu_torch.infer import load_engine, transcribe_file
+    from some_tpu_torch.nn.model import build_midi_extractor
+    from some_tpu_torch.utils.checkpoint import save_checkpoint
+    from some_tpu_torch.utils.midi_file import MidiFile
+
+    config = production_config("discrete.yaml", transfer_dtype="int16")
+    args = config["midi_extractor_args"]
+    blocks = 2 * args["lay"] + 2
+    d = workdir / "discrete"
+    d.mkdir()
+    variables = random_jax_variables(build_midi_extractor(config), seed=271828)
+    save_checkpoint(d / "model.pt", jax_params_to_state_dict(variables["params"],
+                                                             variables["batch_stats"]))
+    save_yaml(config, d / "config.yaml")
+    wav = setup["wavs"][0]
+    chunks = [c["waveform"] for c in slice_waveform(load_wav(wav, sr=SR)[0], SR)]
+    buckets = sorted({pick_bucket(len(c) // config["hop_size"] + 1) for c in chunks})
+    per_forward = {"depthwise_conv1d": blocks, "flash_attention": blocks}
+    reset_counts()
+    graph = load_engine(d / "model.pt", device="cuda", quiet=True)
+    if type(graph).__name__ != "QuantizedMIDIExtractionInference":
+        raise AssertionError(f"task {config['task_cls']} loaded {type(graph).__name__}")
+    n_graphs = graph.prewarm(buckets, rows=(1, 2, 3, 4, 6, 8))
+    t0 = time.perf_counter()
+    midi = transcribe_file(graph, wav, workdir / "discrete-graph.mid")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launched = read_counts()
+    want = {n: 2 * per_forward.get(n, 0) * n_graphs for n in launched}
+    if launched != want:
+        raise AssertionError(f"discrete graph path launches {launched}, want {want}")
+    pitches = [n["note"] for n in MidiFile.load(midi).notes()]
+    if not pitches or not all(0 <= p <= 127 for p in pitches):
+        raise AssertionError(f"discrete notes: {len(pitches)}, pitches {sorted(set(pitches))}")
+    eager = load_engine(d / "model.pt", device="cuda", quiet=True)
+    set_dispatch(eager, "eager")
+    dispatch = dispatch_check(torch, graph, eager, chunks, per_forward, "discrete")
+    # device time of song 0's graph pass against the continuous model's in
+    # the same precision (the default configuration's f32 engine, prewarmed)
+    continuous = load_engine(workdir / "default-32-true" / "model.pt", device="cuda", quiet=True)
+    continuous.prewarm(buckets, rows=(1, 2, 3, 4, 6, 8))
+    device = {name: profile_pass(torch, lambda: transcribe_file(
+        engine, wav, workdir / f"discrete-{name}-prof.mid"))["device_ms"]
+        for name, engine in (("discrete", graph), ("continuous", continuous))}
+    log(f"discrete infer (configs/discrete.yaml, lay {args['lay']}, {config['midi_num_bins']} "
+        f"classes, {config['pl_trainer_precision']}): {n_graphs} graphs of buckets {buckets}, "
+        f"first pass {first_s:.3f} s, {len(pitches)} notes, pitches "
+        f"{min(pitches)}..{max(pitches)}, launches (captures) "
+        f"{ {n: c for n, c in launched.items() if c} }; device ms of song 0's graph pass "
+        f"{device} (the continuous model's in the same precision beside it); graph vs eager "
+        + json.dumps(dispatch))
+    del graph, eager, continuous
+    torch.cuda.empty_cache()
+    return {"notes": len(pitches), "graphs": n_graphs, "first_s": first_s,
+            "device_ms_song0": device, "launches": launched,
+            "dispatch_check": dispatch}, launched
+
+
+def f64_log_mel(wave: np.ndarray, config: dict) -> np.ndarray:
+    """The log-mel of [rows, samples] audio in float64 on the host (numpy's
+    FFT of the periodic-Hann frames, the filterbank in f64): the yardstick
+    both f32 spectra are held against."""
+    from some_tpu_torch.audio.mel import hann_window, mel_filterbank
+
+    win, hop = config["win_size"], config["hop_size"]
+    x = np.pad(wave.astype(np.float64), ((0, 0), (win // 2, (win + 1) // 2)))
+    frames = np.lib.stride_tricks.sliding_window_view(x, win, axis=-1)[:, ::hop]
+    magnitude = np.abs(np.fft.rfft(frames * hann_window(win), axis=-1))
+    basis = mel_filterbank(config["audio_sample_rate"], win, config["units_dim"],
+                           config["fmin"], config["fmax"]).astype(np.float64)
+    return np.log(np.maximum(magnitude @ basis.T, 1e-5))
+
+
+def mel_check(torch, setup: dict, workdir: pathlib.Path):
+    """``mel_method: dft`` in one default bf16 engine on the four songs
+    (graph dispatch after prewarm), its log-mel against the rfft one on the
+    card, on every group's real frames: at most 1e-2 apart wherever the mel
+    is at least 1e-3 (100 x the clamp), the JAX docstring's figure; below
+    that the direct f32 sum loses the quiet bins to cancellation (on the
+    CPU JAX's own dft and rfft are 0.027 apart on these songs), so there
+    both are held against an f64 log-mel and their largest errors are
+    recorded. Then note F1 against the rfft engine's (the default bf16 main
+    path's MIDI files), the warm RTF, the two mels' device time on the
+    largest group (torch.profiler), and the pass's device ms by group."""
+    from some_tpu_torch.audio.wire import decode_wire_device
+    from some_tpu_torch.config import save_yaml
+    from some_tpu_torch.infer import load_engine, transcribe_file
+    from some_tpu_torch.ops.melspec import LogMelSpec
+    from some_tpu_torch.utils.midi_file import MidiFile, midi_notes_to_arrays
+    from some_tpu_torch.utils.note_f1 import note_f1
+
+    d = workdir / "dft-bf16"
+    d.mkdir()
+    save_yaml(dict(setup["config"], pl_trainer_precision="bf16", mel_method="dft"),
+              d / "config.yaml")
+    os.symlink(setup["ckpt"], d / "model.pt")
+    engine = load_engine(d / "model.pt", device="cuda", quiet=True)
+    engine.prewarm(setup["buckets"])
+    midis = [transcribe_file(engine, wav, workdir / f"dft-{i}.mid")
+             for i, wav in enumerate(setup["wavs"])]
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for i, wav in enumerate(setup["wavs"]):
+            transcribe_file(engine, wav, workdir / f"dft-warm-{i}.mid")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    prof = profile_pass(torch, lambda: [transcribe_file(engine, wav, workdir / f"dft-p{i}.mid")
+                                        for i, wav in enumerate(setup["wavs"])])
+    rfft_midis = [workdir / f"default-bf16-graph-{i}.mid" for i in range(len(setup["wavs"]))]
+    f1 = [note_f1(midi_notes_to_arrays(MidiFile.load(a)), midi_notes_to_arrays(MidiFile.load(b)),
+                  onset_tolerance=0.05, pitch_tolerance=0.5).f1 for a, b in zip(rfft_midis, midis)]
+    config = setup["config"]
+    rfft = LogMelSpec(n_mels=config["units_dim"], sample_rate=config["audio_sample_rate"],
+                      win_length=config["win_size"], hop_length=config["hop_size"],
+                      fmin=config["fmin"], fmax=config["fmax"], device="cuda")
+    groups, _ = engine.bucket_groups(setup["chunks"])
+    err = {"dft_vs_rfft_above_1e-3": 0.0, "dft_vs_rfft": 0.0, "dft_vs_f64": 0.0,
+           "rfft_vs_f64": 0.0}
+    largest = None
+    for _, audio, mask in groups:
+        wave = decode_wire_device(torch.from_numpy(audio).cuda(), engine.wire,
+                                  n_samples=mask.shape[1] * engine.hop - 1)
+        got, want = engine.mel(wave).cpu().numpy(), rfft(wave).cpu().numpy()
+        ref = f64_log_mel(wave.cpu().numpy(), config)
+        loud = mask[..., None] & (ref >= np.log(1e-3))
+        real = np.broadcast_to(mask[..., None], ref.shape)
+        for key, value in (("dft_vs_rfft_above_1e-3", np.abs(got - want)[loud]),
+                           ("dft_vs_rfft", np.abs(got - want)[real]),
+                           ("dft_vs_f64", np.abs(got - ref)[real]),
+                           ("rfft_vs_f64", np.abs(want - ref)[real])):
+            err[key] = max(err[key], float(value.max()))
+        if largest is None or wave.numel() > largest.numel():
+            largest = wave
+    mel_ms = {name: {"ms": median_ms(torch, lambda: mel(largest)),
+                     "device_ms": device_ms(torch, lambda: mel(largest), calls=10)}
+              for name, mel in (("dft", engine.mel), ("rfft", rfft))}
+    audio_s = setup["audio_s"]
+    log(f"dft mel, default bf16: log-mel max |d| on the songs' real frames {err} (dft vs "
+        f"rfft limit 1e-2 where the mel >= 1e-3); note F1 against the rfft engine {f1}; warm "
+        f"RTF {audio_s / statistics.median(walls):.2f}x; mel device ms on "
+        f"{list(largest.shape)} samples: {mel_ms}; pass device ms "
+        f"{prof['device_ms']:.1f}, by group {prof['by_group_ms']}")
+    if not err["dft_vs_rfft_above_1e-3"] <= 1e-2:
+        raise AssertionError(f"dft log-mel differs from rfft: {err}")
+    del engine
+    torch.cuda.empty_cache()
+    return {"max_abs_logmel": err, "f1_vs_rfft": f1,
+            "rtf_warm_median": audio_s / statistics.median(walls), "mel_device_ms": mel_ms,
+            "mel_samples_shape": list(largest.shape), "profile": prof}
+
+
+class AttributeDict(dict):
+    """Stands for Lightning's hyper-parameter dict: pickled as a class that
+    ``torch.load(weights_only=True)`` refuses, as a Lightning file's are."""
+
+
+def lightning_check(torch, workdir: pathlib.Path, setup: dict):
+    """A reference Lightning checkpoint at production width: ``OracleModel``
+    (tests/torch_oracle.py, the reference's key layout, torch only; 8
+    layers, dim 512, 8 x 64 heads, k 31, 80 -> 128) with random BatchNorm
+    statistics from a seed, saved as ``{"state_dict": {"model." + k: v},
+    "hyper_parameters": ...}`` with config.yaml beside it (32-true). Loaded
+    through ``load_engine``; the port's f32 forward (kernels on) against
+    ``OracleModel``'s on the same input on the card, atol 5e-5 + rtol 1e-4
+    (the JAX package's oracle tolerance), the measured max |d| printed; then
+    the CLI writes a MIDI file of song 0."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_oracle import OracleModel
+
+    from some_tpu_torch.config import save_yaml
+    from some_tpu_torch.infer import load_engine, transcribe_file
+    from some_tpu_torch.utils.midi_file import MidiFile
+
+    config = dict(setup["config"], pl_trainer_precision="32-true")
+    args = config["midi_extractor_args"]
+    torch.manual_seed(161803)
+    oracle = OracleModel(args["lay"], args["dim"], config["units_dim"], config["midi_num_bins"],
+                         kernel_size=args["kernel_size"], heads=args["attention_heads"],
+                         dim_head=args["attention_heads_dim"]).eval()
+    with torch.no_grad():
+        for m in oracle.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                m.running_mean.normal_(0, 0.5)
+                m.running_var.uniform_(0.5, 2.0)
+    d = workdir / "lightning"
+    d.mkdir()
+    torch.save({"state_dict": {f"model.{k}": v for k, v in oracle.state_dict().items()},
+                "hyper_parameters": AttributeDict(config), "epoch": 0, "global_step": 0},
+               d / "model.ckpt")
+    save_yaml(config, d / "config.yaml")
+    engine = load_engine(d / "model.ckpt", device="cuda", quiet=True)
+    oracle = oracle.cuda()
+    x = torch.randn((4, 1024, config["units_dim"]), generator=torch.Generator(
+        device="cuda").manual_seed(9), device="cuda")
+    mask = torch.ones((4, 1024), dtype=torch.bool, device="cuda")
+    reset_counts()
+    with torch.no_grad():
+        got = engine.model(x, mask=mask, sig=True)
+        launched = read_counts()
+        want = oracle(x, mask=mask, sig=True)
+    if not launched["depthwise_conv1d"] or not launched["flash_attention"]:
+        raise AssertionError(f"the Lightning forward ran no kernel: {launched}")
+    errs = {}
+    for name, g, w in zip(("probs", "bounds"), got, want):
+        d_abs = (g - w).abs()
+        errs[name] = {"max_abs": float(d_abs.max()),
+                      "max_over_tol": float((d_abs / (5e-5 + 1e-4 * w.abs())).max())}
+    midi = transcribe_file(engine, setup["wavs"][0], workdir / "lightning.mid")
+    notes = len(MidiFile.load(midi).notes())
+    log(f"Lightning checkpoint (OracleModel {args['lay']} x {args['dim']}, "
+        f"{sum(v.numel() for v in oracle.state_dict().values())} values): f32 forward through "
+        f"the kernels ({ {n: c for n, c in launched.items() if c} }) against OracleModel's: "
+        f"{errs} (tolerance 5e-5 + 1e-4 |want|); the CLI wrote {notes} notes")
+    if max(e["max_over_tol"] for e in errs.values()) > 1.0 or notes == 0:
+        raise AssertionError(f"Lightning checkpoint: {errs}, {notes} notes")
+    del engine, oracle
+    torch.cuda.empty_cache()
+    return {"vs_oracle": errs, "notes": notes, "launches": launched}
+
+
+def oversize_split(torch, workdir: pathlib.Path, setup: dict):
+    """Song 0 through one default bf16 engine whose frame buckets stop at
+    256, so each of its chunks splits at the bucket boundary and
+    ``merge_parts`` joins the parts: graph dispatch (after prewarm) against
+    eager on every group bit for bit with its graphs' kernels
+    (``dispatch_check``); the song's notes, graph against the plain path
+    with the same buckets, note F1 >= 0.95 (bf16)."""
+    from some_tpu_torch.audio.wavio import load_wav
+    from some_tpu_torch.infer import load_engine, transcribe_file
+    from some_tpu_torch.inference.base_infer import set_dispatch
+    from some_tpu_torch.inference.pipeline import slice_waveform
+    from some_tpu_torch.nn.conformer import set_kernel_impl
+    from some_tpu_torch.utils.midi_file import MidiFile, midi_notes_to_arrays
+    from some_tpu_torch.utils.note_f1 import note_f1
+
+    model = workdir / "default-bf16" / "model.pt"
+    buckets = (128, 192, 256)
+    wav = setup["wavs"][0]
+    chunks = [c["waveform"] for c in slice_waveform(load_wav(wav, sr=SR)[0], SR)]
+    engines = {}
+    for name in ("graph", "eager", "plain"):
+        engines[name] = load_engine(model, device="cuda", quiet=True)
+        engines[name].frame_buckets = buckets
+    set_dispatch(engines["eager"], "eager")
+    set_dispatch(engines["plain"], "eager")
+    set_kernel_impl(engines["plain"].model, "plain")
+    groups, n_parts = engines["graph"].bucket_groups(chunks)
+    if max(n_parts) < 2:
+        raise AssertionError(f"no chunk of song 0 split at bucket {buckets[-1]}: {n_parts}")
+    n_graphs = engines["graph"].prewarm(sorted({mask.shape[1] for _, _, mask in groups}),
+                                        rows=(1, 2, 3, 4, 6, 8))
+    blocks = setup["blocks"]
+    per_forward = {"depthwise_conv1d": blocks, "flash_attention": blocks}
+    dispatch = dispatch_check(torch, engines["graph"], engines["eager"], chunks, per_forward,
+                              "oversize split")
+    midis = {name: transcribe_file(engines[name], wav, workdir / f"oversize-{name}.mid")
+             for name in ("graph", "plain")}
+    f1 = note_f1(midi_notes_to_arrays(MidiFile.load(midis["plain"])),
+                 midi_notes_to_arrays(MidiFile.load(midis["graph"])),
+                 onset_tolerance=0.05, pitch_tolerance=0.5).f1
+    log(f"oversize split (frame buckets {buckets}, song 0: chunks split into {n_parts} parts; "
+        f"{n_graphs} graphs prewarmed, {engines['graph'].graphs_captured} held): graph vs "
+        f"eager " + json.dumps(dispatch) + f"; note F1 graph vs plain {f1:.4f} (need >= 0.95)")
+    if f1 < 0.95:
+        raise AssertionError(f"oversize split: note F1 graph vs plain {f1}")
+    del engines
+    torch.cuda.empty_cache()
+    return {"parts": n_parts, "graphs": n_graphs, "dispatch_check": dispatch,
+            "f1_vs_plain": f1}
+
+
 def max_sm_clock_mhz() -> float:
     """The card's maximum SM clock, as nvidia-smi reports it."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -1889,41 +2285,72 @@ def main() -> int:
         {n: r for n, r in registers.items()
          if any(kernel in n for _, kernel, _ in TENSOR_CORE_KERNELS)}))
 
-    rows = {"depthwise_conv1d": check_depthwise(torch, sm_clock_mhz),
-            "flash_attention": check_attention(torch)}
-    rows.update(check_depthwise_backward(torch, sm_clock_mhz))
-    rows.update(check_attention_backward(torch))
-    rows["fused_ln_ffn_residual"] = check_fused_ffn(torch)
-    rows["splash_attention"] = check_splash(torch)
-    rows.update(check_splash_backward(torch))
+    phase_s = {}
+
+    def phase(name, fn, *args, **kwargs):
+        """Run one phase, log and keep its seconds."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
+    rows = {"depthwise_conv1d": phase("check_depthwise", check_depthwise, torch, sm_clock_mhz),
+            "flash_attention": phase("check_attention", check_attention, torch)}
+    rows.update(phase("check_depthwise_backward", check_depthwise_backward, torch,
+                      sm_clock_mhz))
+    rows.update(phase("check_attention_backward", check_attention_backward, torch))
+    rows["fused_ln_ffn_residual"] = phase("check_fused_ffn", check_fused_ffn, torch)
+    rows["splash_attention"] = phase("check_splash", check_splash, torch)
+    rows.update(phase("check_splash_backward", check_splash_backward, torch))
     report_tensor_core_kernels(rows, hmma)
 
     launches, results = {}, {}
+    results["int8_product"] = phase("int8_product", check_int8_products, torch)
     with tempfile.TemporaryDirectory(prefix="some_tpu_torch_smoke_") as tmp:
-        setup = infer_setup(pathlib.Path(tmp))
+        work = pathlib.Path(tmp)
+        setup = infer_setup(work)
         for opt_in in (False, True):
             tag = "opt_in" if opt_in else "default"
-            results[f"infer_{tag}"], infer_launches = main_path(
-                torch, pathlib.Path(tmp), setup, opt_in)
+            results[f"infer_{tag}"], infer_launches = phase(
+                f"infer_{tag}", main_path, torch, work, setup, opt_in)
             launches[f"infer_{tag}"] = infer_launches["graph"]
             launches[f"infer_{tag}_eager"] = infer_launches["eager"]
-            results[f"train_{tag}"], launches[f"train_{tag}"] = train_path(
-                torch, pathlib.Path(tmp), 8, opt_in)
-            results[f"kernel_vs_plain_train_step_{tag}"] = kernel_vs_plain_step(torch, opt_in)
+            results[f"train_{tag}"], launches[f"train_{tag}"] = phase(
+                f"train_{tag}", train_path, torch, work, 8, opt_in)
+            results[f"kernel_vs_plain_train_step_{tag}"] = phase(
+                f"kernel_vs_plain_train_step_{tag}", kernel_vs_plain_step, torch, opt_in)
+        # int8 serving: the default configuration in bf16 and f32, the opt-in one in bf16
+        for opt_in, precisions in ((False, ("bf16", "32-true")), (True, ("bf16",))):
+            tag = ("opt_in" if opt_in else "default") + "_int8"
+            results[f"infer_{tag}"], infer_launches = phase(
+                f"infer_{tag}", main_path, torch, work, setup, opt_in, True, precisions)
+            launches[f"infer_{tag}"] = infer_launches["graph"]
+            launches[f"infer_{tag}_eager"] = infer_launches["eager"]
+        results["dft_mel"] = phase("dft_mel", mel_check, torch, setup, work)
+        results["oversize_split"] = phase("oversize_split", oversize_split, torch, work, setup)
+        results["infer_discrete"], launches["infer_discrete"] = phase(
+            "infer_discrete", discrete_infer, torch, work, setup)
+        results["train_discrete"], launches["train_discrete"] = phase(
+            "train_discrete", train_path, torch, work, 8, discrete=True)
+        results["lightning"] = phase("lightning", lightning_check, torch, work, setup)
+        launches["lightning"] = results["lightning"]["launches"]
         # after every profiled replay: with these 66 graphs captured earlier
         # in the process, torch.profiler has missed a kernel record of a replay
-        model = pathlib.Path(tmp) / "default-bf16" / "model.pt"
-        results["full_prewarm"] = full_prewarm(torch, model)
-        results["cold_cli"] = cold_cli(torch, model, setup["wavs"][0], pathlib.Path(tmp))
-    results["f32_overfit"] = overfit_f32(torch)
+        model = work / "default-bf16" / "model.pt"
+        results["full_prewarm"] = phase("full_prewarm", full_prewarm, torch, model)
+        results["cold_cli"] = phase("cold_cli", cold_cli, torch, model, setup["wavs"][0], work)
+    results["f32_overfit"] = phase("f32_overfit", overfit_f32, torch)
 
     # the port's bench, shortened (2 batches a round, a 4-phrase song)
     from some_tpu_torch import bench
 
-    t0 = time.perf_counter()
-    bench_line = bench.measure("cuda", iters=2, phrases=4)
-    log(f"bench (SOME_BENCH_ITERS=2, SOME_BENCH_PHRASES=4) in {time.perf_counter() - t0:.1f} s")
+    bench_line = phase("bench", bench.measure, "cuda", iters=2, phrases=4)
+    log("bench: SOME_BENCH_ITERS=2, SOME_BENCH_PHRASES=4")
     torch.cuda.empty_cache()
+    results["phase_s"] = phase_s
+    log(f"phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}; total "
+        f"{time.perf_counter() - START:.1f} s since the script started")
 
     flash_py = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     splash_py = "jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py"
@@ -1954,7 +2381,7 @@ def main() -> int:
                 "launches_by_path": by_path,
                 "launches_per_train_step": {
                     tag: results[f"train_{tag}"]["launches_per_step"][name]
-                    for tag in ("default", "opt_in")},
+                    for tag in ("default", "opt_in", "discrete")},
                 "max_abs_err": max(r["max_abs_diff"] for r in rows[name]),
                 "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -30,11 +30,11 @@ Knobs, as environment variables under ``bench.py``'s names: SOME_BENCH_B
 file song, 32), SOME_BENCH_FILE (0 skips the file phases), SOME_BENCH_LAY /
 SOME_BENCH_DIM (model depth and width), SOME_BENCH_WIRE (transfer_dtype,
 ``auto``), SOME_BENCH_WIRE_SR (half-rate wire, 0 = native), SOME_BENCH_MEL
-(mel method) and SOME_BENCH_QUANT (quantization); the last two take only
-what the port has (``rfft``, ``none``) and stop the bench with a message on
-any other value (the dft mel and int8 are still to port). Without a card
-it raises; ``--device cpu`` runs the plain versions, for a test at a tiny
-geometry, and its line says ``"device": "cpu"``.
+(mel method: ``rfft`` or ``dft``) and SOME_BENCH_QUANT (quantization:
+``none`` or ``int8``); any other value of those two stops the bench with a
+message. Without a card it raises; ``--device cpu`` runs the plain
+versions, for a test at a tiny geometry, and its line says ``"device":
+"cpu"``.
 """
 from __future__ import annotations
 
@@ -66,8 +66,9 @@ from some_tpu_torch.utils.midi_file import build_midi_file
 BASELINE_RTF = 300.0  # the reference README's figure, RTX 3080 Ti (bench.py:27)
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CONFIG = REPO / "configs" / "midi_conformer.yaml"
-#: the knobs that name a path the port does not have yet: (name, the one value it has)
-ONE_VALUE_KNOBS = (("SOME_BENCH_MEL", "rfft"), ("SOME_BENCH_QUANT", "none"))
+#: the knobs that choose a path: (name, config key, its values, the first the default)
+PATH_KNOBS = (("SOME_BENCH_MEL", "mel_method", ("rfft", "dft")),
+              ("SOME_BENCH_QUANT", "quantize", ("none", "int8")))
 # a fresh process's load_engine + transcribe_file, timed inside it: argv is
 # the checkpoint, the WAV, the MIDI path, the device ('' = the default) and
 # Python run on `engine` after the load (untimed; '' = nothing)
@@ -102,13 +103,15 @@ def build_engine(device, batch_chunks: int = 32, seed: int = 0):
     args["dim"] = _env_int("SOME_BENCH_DIM", args["dim"])
     if args["dim"] < 128:
         args["attention_heads"] = 2
-    for name, value in ONE_VALUE_KNOBS:
-        if os.environ.get(name, value) != value:
-            raise SystemExit(f"{name}={os.environ[name]}: the port has only {value!r} "
-                             "so far (see ROADMAP.md)")
+    for name, key, values in PATH_KNOBS:
+        value = os.environ.get(name) or values[0]
+        if value not in values:
+            raise SystemExit(f"{name}={value}: not one of {', '.join(values)}")
+        config[key] = value
     config["transfer_dtype"] = os.environ.get("SOME_BENCH_WIRE", "auto")
     config["wire_sr"] = _env_int("SOME_BENCH_WIRE_SR", 0) or None
-    variables = random_jax_variables(build_midi_extractor(config), seed=seed)
+    # the f32 weights; an int8 engine quantizes them as it loads them
+    variables = random_jax_variables(build_midi_extractor(config, quantize="none"), seed=seed)
     state = jax_params_to_state_dict(variables["params"], variables["batch_stats"])
     engine = MIDIExtractionInference.from_state_dict(
         config, state, dtype=torch.bfloat16, max_batch_chunks=batch_chunks, device=device)
@@ -310,6 +313,9 @@ def measure(device=None, B: int = 32, T: int = 1024, iters: int = 5, phrases: in
         "file_host_compute_fraction": host_compute_fraction,
         "wire": engine.wire,
         "wire_sr": engine.wire_sr,
+        "mel_method": config["mel_method"],
+        "quantize": config["quantize"],
+        "weight_bytes": engine.weight_bytes,
         "device": where,
     }
     if engine.wire_decision is not None:

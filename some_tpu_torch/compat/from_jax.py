@@ -10,7 +10,10 @@ so the mapping is per leaf:
     the depthwise ``.../dw/kernel [k, C]``, which keeps its layout;
   * ``scale`` -> ``weight``; ``bias`` -> ``bias``;
   * batch_stats ``mean`` / ``var`` -> the ``running_mean`` / ``running_var``
-    buffers.
+    buffers;
+  * an int8 serving model's ``qscales`` collection: ``.../kernel_scale`` ->
+    ``....weight_scale``; its int8 kernels transpose and stay int8 (the
+    buffers ``ops/quant.py`` gives a quantized ``QDense``).
 
 Trees are nested dicts of numpy arrays (what the native checkpoint holds);
 nothing here imports JAX. :func:`optax_state_to_torch` carries the optax
@@ -29,6 +32,7 @@ from torch import nn
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+_QSCALE_LEAVES = {"kernel_scale": "weight_scale"}
 
 
 def _flatten(tree: dict, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -42,15 +46,17 @@ def _flatten(tree: dict, prefix=()) -> Dict[tuple, np.ndarray]:
     return out
 
 
-def jax_params_to_state_dict(params: dict, batch_stats: Optional[dict] = None
-                             ) -> Dict[str, torch.Tensor]:
-    """flax ``params`` / ``batch_stats`` trees -> the port's ``state_dict``.
+def jax_params_to_state_dict(params: dict, batch_stats: Optional[dict] = None,
+                             qscales: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """flax ``params`` / ``batch_stats`` / ``qscales`` trees -> the port's
+    ``state_dict``: float32, except int8 kernels, which stay int8.
 
     Raises ``KeyError`` on a leaf no rule maps. Use :func:`load_jax_variables`
     to also fail on a port parameter the trees leave unfilled."""
     state = {}
     for collection, rules, tree in (("params", _PARAM_LEAVES, params),
-                                    ("batch_stats", _STAT_LEAVES, batch_stats or {})):
+                                    ("batch_stats", _STAT_LEAVES, batch_stats or {}),
+                                    ("qscales", _QSCALE_LEAVES, qscales or {})):
         for path, leaf in _flatten(tree).items():
             if path[-1] not in rules:
                 raise KeyError(f"unmapped {collection} leaf {'/'.join(path)}")
@@ -61,15 +67,21 @@ def jax_params_to_state_dict(params: dict, batch_stats: Optional[dict] = None
                 leaf = leaf.T
             if key in state:
                 raise KeyError(f"two leaves map onto {key}")
-            state[key] = torch.from_numpy(np.array(leaf, dtype=np.float32, order="C"))
+            dtype = np.int8 if leaf.dtype == np.int8 and path[-1] == "kernel" else np.float32
+            state[key] = torch.from_numpy(np.array(leaf, dtype=dtype, order="C"))
     return state
 
 
 def load_jax_variables(model: nn.Module, params: dict,
-                       batch_stats: Optional[dict] = None) -> None:
+                       batch_stats: Optional[dict] = None, qscales: Optional[dict] = None) -> None:
     """Fill ``model`` from flax trees; raises on any leaf left unmapped and on
-    any port parameter or buffer left unfilled (or of the wrong shape)."""
-    state = jax_params_to_state_dict(params, batch_stats)
+    any port parameter or buffer left unfilled (or of the wrong shape). Int8
+    kernels (with their ``qscales``) turn their modules into int8 ones."""
+    state = jax_params_to_state_dict(params, batch_stats, qscales)
+    if qscales:
+        from some_tpu_torch.ops.quant import adopt_int8_layout
+
+        adopt_int8_layout(model, state)
     missing, unexpected = model.load_state_dict(state, strict=False)
     if missing or unexpected:
         raise KeyError(f"weights do not match the model: unfilled {missing}, "
@@ -78,14 +90,17 @@ def load_jax_variables(model: nn.Module, params: dict,
 
 def jax_variable_shapes(model: nn.Module) -> Dict[str, dict]:
     """The flax variable tree (as shapes) that :func:`jax_params_to_state_dict`
-    maps onto ``model`` — the inverse of its rules."""
+    maps onto ``model`` — the inverse of its rules (with ``qscales`` for a
+    quantized model)."""
     trees: Dict[str, dict] = {"params": {}, "batch_stats": {}}
-    inverse = {"running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+    inverse = {"running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var"),
+               "weight_scale": ("qscales", "kernel_scale")}
     for key, tensor in model.state_dict().items():
         *path, name = key.split(".")
         shape = tuple(tensor.shape)
         if name in inverse:
             collection, leaf = inverse[name]
+            trees.setdefault(collection, {})
         elif name == "bias":
             collection, leaf = "params", "bias"
         elif tensor.dim() == 2:

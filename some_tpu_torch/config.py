@@ -1,16 +1,20 @@
-"""YAML config reader and writer for the subset ``configs/*.yaml`` use, and
-the ``base_config`` cascade.
+"""YAML config reader and writer for the subset SOME configs use, and the
+``base_config`` cascade.
 
 The machine the port serves on has no PyYAML, so the port reads its configs
-itself. The subset: ``#`` comments, block mappings with plain keys, block
-sequences of scalars (``- item``, indented or at the parent key's indent),
-flow sequences of scalars (``[a, b]``), the empty mapping ``{}``, single-quoted
-strings, and the plain scalars ``null``, ``true``, ``false``, decimal
-integers, decimals with a dot (``0.5``, ``1.0e-05``) and words of letters,
-digits and ``_ . / -`` that hold a letter and do not read as numbers
-(``32-true``). Each reads as PyYAML's ``safe_load`` reads it; any other form
-(``yes``, ``0x1F``, ``.inf``, ``1e-5`` without a dot, a date, double quotes,
-...) raises ``ValueError``.
+itself: ``configs/*.yaml`` and the ``config.yaml`` that the JAX and the
+reference trainers write beside a checkpoint (PyYAML's ``safe_dump`` of the
+composed config). The subset: ``#`` comments, block mappings with plain
+keys, block sequences of scalars (``- item``, indented or at the parent
+key's indent), flow sequences of scalars (``[a, b]``), the empty mapping
+``{}``, single-quoted strings, and plain scalars: ``null``, ``~``, ``true``,
+``false``, decimal integers, decimals with a dot (``0.5``, ``1.0e-05``),
+``.inf``, ``-.inf``, ``.nan``, and any other plain text that PyYAML's
+``safe_load`` reads as a string (``32-true``, ``/data/some ds/binary``).
+Each reads as ``safe_load`` reads it; a plain scalar that YAML 1.1 would
+read as another type the subset lacks (``yes``, ``0x1F``, ``1_000``,
+``1e-5`` without a dot, a date, ...), double quotes, and nested or mapping
+sequence items raise ``ValueError``.
 
 The cascade mirrors ``some_tpu/config.py``: parents in ``base_config`` are
 squashed depth-first and the child overrides leaf keys, nested dicts merging.
@@ -28,14 +32,35 @@ _WORD = re.compile(r"^(?=[^A-Za-z]*[A-Za-z])[A-Za-z0-9_][A-Za-z0-9_./-]*$")
 # only by a narrow rule (``1e-5``, ``0x1F``, ``0b101``): outside the subset
 _NUMBERISH = re.compile(r"^[0-9][0-9_.]*(?:[eE][-+]?[0-9]+|[xXbBoO].*)$")
 _KEY = re.compile(r"^([A-Za-z_][A-Za-z0-9_.-]*)\s*:(?:\s+(.*)|)$")
-_CONSTANTS = {"": None, "null": None, "true": True, "false": False}
+_CONSTANTS = {"": None, "null": None, "~": None, "true": True, "false": False,
+              ".inf": float("inf"), "-.inf": float("-inf"), ".nan": float("nan")}
 # words that YAML 1.1 reads as a boolean or null in some spelling
 _RESERVED = {"yes", "no", "on", "off", "true", "false", "null"}
+# plain scalars that PyYAML's implicit resolvers read as something other than
+# a string (bool, int, float, null, timestamp, merge, value), in their forms
+# outside the subset
+_OTHER_TYPE = re.compile(
+    r"^(?:yes|Yes|YES|no|No|NO|True|TRUE|False|FALSE|on|On|ON|off|Off|OFF|Null|NULL"
+    r"|[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)|[-+]?0x[0-9a-fA-F_]+"
+    r"|[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+"
+    r"|[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
+    r"|[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN)"
+    r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}(?:(?:[Tt]|[ \t]+)[0-9][0-9]?:[0-9][0-9]:[0-9][0-9]"
+    r"(?:\.[0-9]*)?(?:[ \t]*(?:Z|[-+][0-9][0-9]?(?::[0-9][0-9])?))?)?|<<|=)$")
+# a plain scalar may not start with an indicator, nor hold ": " or " #"
+_PLAIN_STR = re.compile(r"^(?![-?:,\[\]{}#&*!|>'\"%@`])(?!.*(?::\s| #))[^\t]*(?<![\s:])$")
 
 
 def _is_word(text: str) -> bool:
     return (bool(_WORD.match(text)) and not _NUMBERISH.match(text)
             and text.lower() not in _RESERVED)
+
+
+def _is_plain_string(text: str) -> bool:
+    """A plain scalar that ``safe_load`` reads as a string, or a leading
+    ``-`` that no space follows (``-x``), as ``safe_dump`` writes it."""
+    body = text[1:] if text.startswith("-") and len(text) > 1 and text[1] != " " else text
+    return bool(_PLAIN_STR.match(body)) and not _OTHER_TYPE.match(text)
 
 
 def _scalar(text: str) -> Any:
@@ -50,7 +75,7 @@ def _scalar(text: str) -> Any:
         return int(text)
     if _FLOAT.match(text):
         return float(text)
-    if _is_word(text):
+    if _is_word(text) or _is_plain_string(text):
         return text
     raise ValueError(f"YAML scalar {text!r} is outside the subset configs/*.yaml use")
 

@@ -48,6 +48,7 @@ import torch
 
 from some_tpu_torch.audio.wire import check_wire, encode_wire, silence_buffer
 from some_tpu_torch.nn.model import build_midi_extractor
+from some_tpu_torch.ops.quant import adopt_int8_layout, quantize_params
 from some_tpu_torch.utils.checkpoint import load_state_dict
 
 DEFAULT_BUCKETS = (128, 192, 256, 384, 512, 768, 1024, 1536, 2048, 3072, 4096,
@@ -164,7 +165,32 @@ class BaseInference:
             self.model = self.build_model().eval()
         if state_dict is None:
             state_dict = load_state_dict(model_path)
+        self._load_weights(state_dict)
+
+    def _load_weights(self, state_dict: Dict[str, torch.Tensor]) -> None:
+        """Fill the model. With ``quantize: int8`` the weights are quantized
+        once, here, unless they arrive int8 already (a quantized checkpoint,
+        the JAX engine's variables carried across): the guard reads the
+        weights' dtypes, as the JAX engine's does."""
+        quantized = any(t.dtype == torch.int8 for t in state_dict.values())
+        if self.model.quant != "int8":
+            if quantized:
+                raise ValueError("int8 weights need quantize: int8 in the config")
+            self.model.load_state_dict(state_dict, strict=True)
+            return
+        if quantized:
+            adopt_int8_layout(self.model, state_dict)
         self.model.load_state_dict(state_dict, strict=True)
+        if not quantized:
+            quantize_params(self.model)
+
+    @property
+    def weight_bytes(self) -> int:
+        """Bytes of the model's weights resident on the engine's device
+        (parameters and buffers: int8 weights and their scales once
+        quantized; the f32 master weights otherwise, whatever the compute
+        dtype, as in the JAX engine)."""
+        return sum(t.numel() * t.element_size() for t in self.model.state_dict().values())
 
     @classmethod
     def from_state_dict(cls, config: dict, state_dict: Dict[str, torch.Tensor], **kwargs):
@@ -397,9 +423,9 @@ class BaseInference:
         raise NotImplementedError
 
     def _log_bucket_path(self, n_frames: int) -> None:
-        """Say once per bucket which attention path it runs, and whether the
-        macaron FFNs run fused (stderr: stdout belongs to the surfaces' own
-        output)."""
+        """Say once per bucket which attention path it runs, whether the
+        macaron FFNs run fused and whether the products run int8 (stderr:
+        stdout belongs to the surfaces' own output)."""
         if not hasattr(self, "_logged_buckets"):
             self._logged_buckets = set()
         if n_frames in self._logged_buckets:
@@ -410,8 +436,10 @@ class BaseInference:
             path = "plain"
         else:
             path = "splash kernel" if impl == "splash" else "flash kernel"
-        ffn = ", fused FFN" if self.config.get("fuse_ffn", False) else ""
-        print(f"| bucket T={n_frames}: attention={path}{ffn}", file=sys.stderr)
+        int8 = self.model.quant == "int8"
+        ffn = ", fused FFN" if self.config.get("fuse_ffn", False) and not int8 else ""
+        print(f"| bucket T={n_frames}: attention={path}{ffn}{', int8' if int8 else ''}",
+              file=sys.stderr)
 
     def bucket_groups(self, waveforms: List[np.ndarray]):
         """Native-rate chunks -> (groups, n_parts): each group is (jobs,
@@ -568,8 +596,12 @@ class BaseInference:
 # task_cls -> inference engine (some_tpu/registry.py TASK_INFERENCE_MAPPING)
 TASK_INFERENCE_MAPPING = {
     "training.MIDIExtractionTask": "some_tpu_torch.inference.me_infer.MIDIExtractionInference",
+    "training.QuantizedMIDIExtractionTask":
+        "some_tpu_torch.inference.me_quant_infer.QuantizedMIDIExtractionInference",
     "some_tpu.training.me_task.MIDIExtractionTask":
         "some_tpu_torch.inference.me_infer.MIDIExtractionInference",
+    "some_tpu.training.me_quant_task.QuantizedMIDIExtractionTask":
+        "some_tpu_torch.inference.me_quant_infer.QuantizedMIDIExtractionInference",
 }
 
 
@@ -579,8 +611,6 @@ def build_inference(config: dict, model_path: pathlib.Path | str, **kwargs) -> B
 
     path = TASK_INFERENCE_MAPPING.get(config["task_cls"])
     if path is None:
-        raise NotImplementedError(f"no inference engine ported for task "
-                                  f"{config['task_cls']!r} (the quantized task is "
-                                  "still to port: see ROADMAP.md)")
+        raise ValueError(f"no inference engine for task {config['task_cls']!r}")
     module, _, name = path.rpartition(".")
     return getattr(importlib.import_module(module), name)(config, model_path, **kwargs)

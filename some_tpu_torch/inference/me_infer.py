@@ -66,8 +66,12 @@ class MIDIExtractionInference(BaseInference):
         the data for a shape, so a bucket's run captures as one graph."""
         audio = decode_wire_device(audio, self.wire, n_samples=mask.shape[1] * self.hop - 1)
         units = self.mel(audio)
-        probs, bounds = self.model(units, mask=mask, sig=True)
+        probs, bounds = self._forward(units, mask)
         return dict(self._decode(probs, bounds, mask), probs=probs, bounds=bounds)
+
+    def _forward(self, units, mask):
+        """The model on log-mel units: (per-bin sigmoid probs, boundary probs)."""
+        return self.model(units, mask=mask, sig=True)
 
     def assemble(self, device_out: dict, n_frames: int) -> Dict[str, np.ndarray]:
         n = int(device_out["n_notes"])

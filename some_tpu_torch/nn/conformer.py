@@ -30,6 +30,12 @@ eval-mode block is one fused LN -> FFN -> residual kernel
 (``ops/fused_ffn.py``), with that kernel's arithmetic (f32 biases and SiLU,
 the JAX kernel's LayerNorm variance); training runs the unfused modules.
 
+With ``quant='int8'`` (serving only) the model runs the int8 products of
+``ops/quant.py`` wherever ``quantize_params`` gave a ``QDense`` int8
+weights: each such Dense quantizes its input per tensor, except that the
+attention's q and kv projections share one quantization of their input. A
+quantized model never fuses its FFNs (K3 reads f32 weights), as in JAX.
+
 Masks: attention excludes padded keys, the conv module zeroes padded frames
 before the depthwise conv, and MidiConformer re-masks the midi stream after
 its input projection and after every layer. With them a padded bucket
@@ -51,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 from some_tpu_torch.ops.attention import attention_bhtd
 from some_tpu_torch.ops.depthwise import depthwise_conv1d
 from some_tpu_torch.ops.fused_ffn import fused_ln_ffn_residual
+from some_tpu_torch.ops.quant import dynamic_int8_dense, int8_matmul, quantize_activation
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -97,16 +104,27 @@ def set_dropout_step(model: nn.Module, seed: int, step: int) -> None:
 
 
 class QDense(nn.Linear):
-    """Linear in ``dtype`` (the JAX QDense without its int8 path)."""
+    """Linear in ``dtype``, with the JAX QDense's int8 serving path: once
+    ``ops/quant.quantize_params`` has replaced the weight by an int8 buffer
+    and its per-channel ``weight_scale``, the input is quantized on the fly
+    and the product runs int8 x int8 -> int32. The bias is added in
+    ``dtype`` either way."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
+    @property
+    def is_int8(self) -> bool:
+        return self.weight.dtype == torch.int8
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        y = F.linear(x.to(dt), self.weight.to(dt))
+        if self.is_int8:
+            y = dynamic_int8_dense(x, self.weight, self.weight_scale, dt)
+        else:
+            y = F.linear(x.to(dt), self.weight.to(dt))
         return y if self.bias is None else y + self.bias.to(dt)
 
 
@@ -164,8 +182,17 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, T, _ = x.shape
         H, D = self.heads, self.head_dim
-        q = self.q_proj(x).unflatten(-1, (H, D)).transpose(1, 2)
-        k, v = self.kv_proj(x).chunk(2, dim=-1)
+        if self.q_proj.is_int8:
+            # one dynamic quantization of x, shared by q and kv (as in JAX)
+            xq, sx = quantize_activation(x)
+            q = int8_matmul(xq, sx, self.q_proj.weight, self.q_proj.weight_scale,
+                            self.compute_dtype)
+            kv = int8_matmul(xq, sx, self.kv_proj.weight, self.kv_proj.weight_scale,
+                             self.compute_dtype)
+        else:
+            q, kv = self.q_proj(x), self.kv_proj(x)
+        q = q.unflatten(-1, (H, D)).transpose(1, 2)
+        k, v = kv.chunk(2, dim=-1)
         k = k.unflatten(-1, (H, D)).transpose(1, 2)
         v = v.unflatten(-1, (H, D)).transpose(1, 2)
         out = attention_bhtd(q, k, v, mask, D ** -0.5, self.attn_impl, self.impl)
@@ -263,9 +290,10 @@ class ConformerBlock(nn.Module):
     def __init__(self, dim: int, kernel_size: int, heads: int, head_dim: int,
                  dtype: torch.dtype, attn_impl: str = "auto", conv_drop: float = 0.0,
                  ffn_latent_drop: float = 0.0, ffn_out_drop: float = 0.0,
-                 attention_drop: float = 0.0, fuse_ffn: bool = False):
+                 attention_drop: float = 0.0, fuse_ffn: bool = False, quant: str = "none"):
         super().__init__()
         self.fuse_ffn = fuse_ffn
+        self.quant = quant
         self.ffn_impl = "auto"
         self.norm1 = LayerNorm(dim, dtype)
         self.ffn1 = FeedForward(dim, dtype, ffn_latent_drop, ffn_out_drop)
@@ -280,9 +308,9 @@ class ConformerBlock(nn.Module):
 
     def _macaron_ffn(self, x: torch.Tensor, norm: LayerNorm, ffn: FeedForward) -> torch.Tensor:
         """x + 0.5 * FFN(LN(x)): the fused kernel with the block's own weights
-        when ``fuse_ffn`` and in eval mode (the JAX ``_macaron_ffn``), else the
-        unfused modules, dropout included."""
-        if self.fuse_ffn and not self.training:
+        when ``fuse_ffn``, in eval mode and unquantized (the JAX
+        ``_macaron_ffn``), else the unfused modules, dropout included."""
+        if self.fuse_ffn and not self.training and self.quant == "none":
             return fused_ln_ffn_residual(x, norm.weight, norm.bias, ffn.fc1.weight.t(),
                                          ffn.fc1.bias, ffn.fc2.weight.t(), ffn.fc2.bias,
                                          eps=norm.eps, res_scale=0.5, impl=self.ffn_impl)
@@ -359,8 +387,10 @@ class MidiConformer(nn.Module):
                  dtype: torch.dtype = torch.float32, mask_attention: bool = True,
                  attn_impl: str = "auto", conv_drop: float = 0.0, ffn_latent_drop: float = 0.0,
                  ffn_out_drop: float = 0.0, attention_drop: float = 0.0, remat: bool = True,
-                 remat_policy: str = "nothing", fuse_ffn: bool = False):
+                 remat_policy: str = "nothing", fuse_ffn: bool = False, quant: str = "none"):
         super().__init__()
+        if quant not in ("none", "int8"):
+            raise ValueError(f"quantize {quant!r}: 'none' or 'int8'")
         self.lay = lay
         self.mask_attention = mask_attention
         self.compute_dtype = dtype
@@ -370,7 +400,7 @@ class MidiConformer(nn.Module):
                           head_dim=attention_heads_dim, attn_impl=attn_impl,
                           conv_drop=conv_drop, ffn_latent_drop=ffn_latent_drop,
                           ffn_out_drop=ffn_out_drop, attention_drop=attention_drop,
-                          fuse_ffn=fuse_ffn)
+                          fuse_ffn=fuse_ffn, quant=quant)
         self.in_proj_midi = QDense(indim, dim, dtype=dtype)
         self.in_proj_bound = QDense(indim, dim, dtype=dtype)
         for i in range(lay):

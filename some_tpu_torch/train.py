@@ -17,17 +17,22 @@ import pathlib
 import sys
 
 from some_tpu_torch.config import print_config, read_full_config, save_yaml
+from some_tpu_torch.training.me_quant_task import QuantizedMIDIExtractionTask
 from some_tpu_torch.training.me_task import MIDIExtractionTask
 
-# the JAX package's names for the one task the port has
-MIDI_TASK_NAMES = ("training.MIDIExtractionTask", "some_tpu.training.me_task.MIDIExtractionTask")
+# task_cls, under the JAX package's names (some_tpu/registry.py) -> the task
+TASKS = {
+    "training.MIDIExtractionTask": MIDIExtractionTask,
+    "some_tpu.training.me_task.MIDIExtractionTask": MIDIExtractionTask,
+    "training.QuantizedMIDIExtractionTask": QuantizedMIDIExtractionTask,
+    "some_tpu.training.me_quant_task.QuantizedMIDIExtractionTask": QuantizedMIDIExtractionTask,
+}
 
 
 def build_task(config: dict, device=None) -> MIDIExtractionTask:
-    if config["task_cls"] not in MIDI_TASK_NAMES:
-        raise NotImplementedError(f"no training task ported for {config['task_cls']!r} (the "
-                                  "quantized task is still to port: see ROADMAP.md)")
-    return MIDIExtractionTask(config, device=device)
+    if config["task_cls"] not in TASKS:
+        raise ValueError(f"no training task for {config['task_cls']!r}")
+    return TASKS[config["task_cls"]](config, device=device)
 
 
 def main(argv=None):

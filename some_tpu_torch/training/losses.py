@@ -1,7 +1,7 @@
 """Training losses and the midi_acc counters.
 
 Counterpart of ``some_tpu/training/losses.py`` (the functions the
-continuous task uses), in f32 with the same formulas.
+continuous and the quantized tasks use), in f32 with the same formulas.
 """
 from __future__ import annotations
 
@@ -34,6 +34,20 @@ def binary_emd_per_row_masked(pred: torch.Tensor, target: torch.Tensor,
     diff = (torch.cumsum(pred * frame_w, dim=1)
             - torch.cumsum(target * frame_w, dim=1)).abs() / scale
     return (diff * frame_w).sum(dim=1) / denom
+
+
+def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
+                         ignore_index: int = -1) -> torch.Tensor:
+    """logits [B, T, C], int labels [B, T]: the mean over the labels that are
+    not ``ignore_index`` of the f32 log-sum-exp minus the picked logit."""
+    logits = logits.float()
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    top = logits.amax(dim=-1, keepdim=True)
+    logz = torch.log(torch.exp(logits - top).sum(dim=-1)) + top.squeeze(-1)
+    picked = torch.gather(logits, -1, safe[..., None]).squeeze(-1)
+    nll = (logz - picked) * valid
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
 
 
 def midi_accuracy_counts(midi_pred, rest_pred, midi_gt, rest_gt, mask=None,

@@ -59,7 +59,9 @@ class MIDIExtractionTask(BaseTask):
         self.loss_exclude_bucket_padding = config.get("loss_exclude_bucket_padding", True)
 
     def build_model(self):
-        return build_midi_extractor(self.config, dtype=self.compute_dtype)
+        # int8 is serving-only: a work-dir config that carries the serving
+        # key still trains the f32 model
+        return build_midi_extractor(self.config, dtype=self.compute_dtype, quantize="none")
 
     def _frame_weights(self, batch, t_pad: int):
         """(t_real, [T] 0/1 weights), or (None, None) for the whole-tensor mean."""

@@ -9,12 +9,19 @@ The port's own format is ``torch.save`` of::
      "accumulator": {"mini_step", "grads"}, or None}
 
 loaded with ``weights_only=True``. A native SOME-TPU checkpoint (flax
-msgpack) is read and carried across with ``compat/from_jax.py``. A reference
-Lightning ``.ckpt`` is a later slice.
+msgpack) is read and carried across with ``compat/from_jax.py``. Any other
+torch file, a zip archive or a legacy pickle (the JAX package's test,
+``some_tpu/training/checkpoint.py``), is a reference Lightning ``.ckpt``,
+carried across with ``compat/torch_ckpt.py``. Lightning pickles objects
+that are not tensors (hyper-parameters, callbacks' state), which
+``weights_only=True`` refuses, so such a file is loaded with
+``weights_only=False``, as the JAX package loads it: that runs the file's
+pickle, so load only checkpoints from a source you trust.
 """
 from __future__ import annotations
 
 import pathlib
+import pickle
 from typing import Dict
 
 import torch
@@ -46,19 +53,26 @@ def save_checkpoint(path: pathlib.Path | str, state_dict: Dict[str, torch.Tensor
 
 
 def load_checkpoint(path: pathlib.Path | str) -> dict:
-    """A port checkpoint as saved, or a native JAX checkpoint as
-    ``{"format": "jax", "meta", "params", "batch_stats", "opt_state"}``
-    (nested numpy dicts, for ``compat/from_jax.py``)."""
+    """A port checkpoint as saved; a reference Lightning checkpoint as
+    ``{"format": "torch-converted", "meta", "state_dict", "optimizer": None,
+    "accumulator": None}``; or a native JAX checkpoint as ``{"format":
+    "jax", "meta", "params", "batch_stats", "opt_state"}`` (nested numpy
+    dicts, for ``compat/from_jax.py``)."""
     path = pathlib.Path(path)
     with open(path, "rb") as f:
         magic = f.read(2)
-    if magic == b"PK":  # a torch zip archive
-        payload = torch.load(path, map_location="cpu", weights_only=True)
-        if not isinstance(payload, dict) or payload.get("format") != FORMAT:
-            raise NotImplementedError(
-                f"{path} is a torch checkpoint but not the port's own format; "
-                "loading reference Lightning .ckpt files is still to port: see ROADMAP.md")
-        return payload
+    if magic in (b"PK", b"\x80\x02"):  # a torch zip archive, a legacy torch pickle
+        try:
+            payload = torch.load(path, map_location="cpu", weights_only=True)
+        except pickle.UnpicklingError:  # objects beyond tensors: a Lightning file
+            payload = torch.load(path, map_location="cpu", weights_only=False)
+        if isinstance(payload, dict) and payload.get("format") == FORMAT:
+            return payload
+        from some_tpu_torch.compat.torch_ckpt import reference_state_dict
+
+        return {"format": "torch-converted", "meta": {"step": 0},
+                "state_dict": reference_state_dict(payload), "optimizer": None,
+                "accumulator": None}
     from some_tpu_torch.compat.from_jax import read_native_checkpoint
 
     ckpt = read_native_checkpoint(path)

@@ -254,10 +254,30 @@ def test_bench_needs_a_card_unless_told(monkeypatch):
 
 @pytest.mark.parametrize("name, value", [("SOME_BENCH_MEL", "dft"), ("SOME_BENCH_QUANT", "int8")])
 def test_bench_stops_on_a_path_the_port_lacks(monkeypatch, name, value):
-    """The knobs keep bench.py's names; a value the port has no path for
-    stops the bench with a message before any model is built."""
+    """The knobs keep bench.py's names and take its values: the bench runs
+    with the dft mel and with int8 at a tiny geometry on the CPU (its line
+    says which, and int8 holds fewer weight bytes than the f32 default); a
+    value the port has no path for still stops it with a message before any
+    model is built."""
     from some_tpu_torch import bench
 
-    monkeypatch.setenv(name, value)
-    with pytest.raises(SystemExit, match=f"{name}={value}: the port has only"):
+    monkeypatch.setenv(name, "bogus")
+    with pytest.raises(SystemExit, match=f"{name}=bogus: not one of"):
         bench.build_engine("cpu")
+    env = dict(os.environ, SOME_BENCH_LAY="1", SOME_BENCH_DIM="32", SOME_BENCH_B="2",
+               SOME_BENCH_T="128", SOME_BENCH_ITERS="1", SOME_BENCH_PHRASES="1",
+               SOME_BENCH_FILE="0", **{name: value})
+    out = subprocess.run([sys.executable, "-m", "some_tpu_torch.bench", "--device", "cpu"],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["device"] == "cpu" and result["value"] > 0 and result["compute_only_rtf"] > 0
+    key = "mel_method" if name == "SOME_BENCH_MEL" else "quantize"
+    assert result[key] == value
+    monkeypatch.delenv(name)
+    monkeypatch.setenv("SOME_BENCH_LAY", "1")
+    monkeypatch.setenv("SOME_BENCH_DIM", "32")
+    engine, _, _ = bench.build_engine("cpu", batch_chunks=2)
+    assert engine.config["mel_method"] == "rfft" and engine.config["quantize"] == "none"
+    if name == "SOME_BENCH_QUANT":
+        assert result["weight_bytes"] < engine.weight_bytes

@@ -47,12 +47,16 @@ def test_yaml_scalars_resolve_as_pyyaml():
         "g: [1, -2.5, x.y, null]  # comment", "h: {}", "i:", "j: 'it''s 32-true'",
         "k: data/some_ds/binary", "l: []", "m:", "- 1", "- two", "n:", "  o: 3", "  p:",
         "    - [a, b]",
+        # plain scalars PyYAML reads as strings or as its special floats and
+        # null, which safe_dump writes into a trainer's config.yaml
+        "q: 1e-5", "r: ~", "s: -.inf", "t: x y", "u: 08", "v: /data/some ds/binary",
+        "w: -x", "x: a:b", "y: x#y", "z: .inf",
     ])
     assert port_config.parse_yaml(text) == yaml.safe_load(text)
-    # forms outside the subset, which PyYAML would read as something else
-    # than the plain word (or that configs/*.yaml do not use), raise
-    for bad in ("a: 1e-5", "a: yes", "a: Off", "a: ~", "a: 0x1F", "a: -.inf", "a: 08",
-                "a: 2001-12-14", "a: x y", 'a: "q"', "a:\n  - b: 1\n", "a: {b: 1}"):
+    # forms outside the subset, which PyYAML reads as another type than a
+    # string (or that no config uses), raise
+    for bad in ("a: yes", "a: Off", "a: 0x1F", "a: 1_000", "a: 0o17x: 1", "a: 2001-12-14",
+                "a: 1:20", 'a: "q"', "a:\n  - b: 1\n", "a: {b: 1}", "a: - - 1"):
         with pytest.raises(ValueError):
             port_config.parse_yaml(bad)
 
@@ -79,8 +83,21 @@ def test_log_mel_matches_jax(n_samples):
     print(f"parity log-mel: max|d| {np.abs(got - want).max():.3g}")
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-4)
     np.testing.assert_allclose(mel(torch.from_numpy(audio[1])).numpy(), got[1], atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        LogMelSpec(80, SR, 2048, 512, method="dft")
+    # the dft method (the window folded into cos/sin matrices, full-f32
+    # products): against JAX's dft at the rfft's tolerance, and within the
+    # 1e-2 the JAX docstring gives for dft against rfft
+    for mag_scale in (1.0, 2.0):
+        want = np.asarray(JaxLogMelSpec(80, SR, 2048, 512, fmin=40, fmax=8000, method="dft",
+                                        mag_scale=mag_scale)(audio))
+        dft = LogMelSpec(80, SR, 2048, 512, fmin=40, fmax=8000, method="dft",
+                         mag_scale=mag_scale)(torch.from_numpy(audio)).numpy()
+        print(f"parity dft log-mel (mag_scale {mag_scale}): max|d| {np.abs(dft - want).max():.3g}")
+        np.testing.assert_allclose(dft, want, atol=2e-4, rtol=1e-4)
+    np.testing.assert_allclose(
+        LogMelSpec(80, SR, 2048, 512, fmin=40, fmax=8000, method="dft")(torch.from_numpy(audio))
+        .numpy(), got, atol=1e-2, rtol=0)
+    with pytest.raises(ValueError, match="mel_method"):
+        LogMelSpec(80, SR, 2048, 512, method="stft")
 
 
 @pytest.mark.parametrize("wire", ["int16", "float32"])

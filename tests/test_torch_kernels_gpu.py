@@ -23,6 +23,7 @@ from test_torch_depthwise import at_odd_offset
 from some_tpu_torch.ops import attention as A
 from some_tpu_torch.ops import depthwise as W
 from some_tpu_torch.ops import fused_ffn as K3
+from some_tpu_torch.ops import quant
 
 
 @pytest.fixture
@@ -737,3 +738,21 @@ def test_bf16_backward_refuses_misaligned_rows():
             A.splash_attention_bwd_dkv(ok, bad, ok, ok, rows, rows, None)
         with pytest.raises(ValueError, match="16-byte"):
             A.splash_attention_bwd_dq(ok, ok, bad, ok, rows, rows, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(8192, 512, 2048), (1024, 2048, 512), (136, 512, 1024)])
+def test_int8_product_on_card_is_exact(cuda, m, k, n):
+    """cuBLASLt's int8 product (torch._int_mm, the int8 serving path) at the
+    model's shapes, M down to the smallest bucket's, equals the exact
+    product of the same codes (float64: every partial sum is an integer
+    below 2^53), and int8_matmul's f32 rescale equals the exact product's."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device=cuda, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, device=cuda, dtype=torch.int8)
+    sw = torch.rand(n, generator=gen, device=cuda) / 127
+    sx = torch.tensor(0.01, device=cuda)
+    exact = torch.matmul(xq.double(), wq.double().t())
+    assert torch.equal(torch._int_mm(xq, wq.t()).double(), exact)
+    got = quant.int8_matmul(xq, sx, wq, sw, torch.float32)
+    assert torch.equal(got, exact.float() * (sx * sw))

@@ -143,19 +143,40 @@ def test_padded_bucket_equivalence(jax_variables):
 
 
 def test_unported_options_raise(jax_variables):
-    """int8 is still to port and raises; ``fuse_ffn`` builds, and its eval
-    forward equals the unfused one in f32."""
+    """The config's options build: ``quantize: int8`` builds the int8 model,
+    which after ``quantize_params`` holds JAX's int8 model's codes and
+    matches its forward (f32, max |d| <= 0.05, mean <= 0.01: a code that
+    an ulp of upstream f32 moves across a .5 boundary, see
+    tests/test_torch_quant.py); the ``quantize`` argument overrides the key;
+    ``fuse_ffn`` builds, and its eval forward equals the unfused one in
+    f32."""
+    from some_tpu.ops.quant import quantize_params as jax_quantize_params
+    from some_tpu_torch.ops.quant import quantize_params
+
     config = {"units_dim": INDIM, "midi_num_bins": OUTDIM,
               "midi_extractor_args": {k: v for k, v in GEOMETRY.items()
                                       if k not in ("indim", "outdim")}}
-    with pytest.raises(NotImplementedError, match="int8"):
-        build_midi_extractor(dict(config, quantize="int8"))
+    assert build_midi_extractor(dict(config, quantize="int8"), quantize="none").quant == "none"
+    int8 = build_midi_extractor(dict(config, quantize="int8")).eval()
+    assert int8.quant == "int8"
+    load_jax_variables(int8, jax_variables["params"], jax_variables["batch_stats"])
+    assert quantize_params(int8) > 0
+    jparams, jscales = jax_quantize_params(jax_variables["params"])
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((2, 33, INDIM)).astype(np.float32)
+    mask = np.ones((2, 33), bool)
+    mask[1, 20:] = False
+    want = JaxModel(**GEOMETRY, quant="int8").apply(
+        {"params": jparams, "batch_stats": jax_variables["batch_stats"], "qscales": jscales},
+        x, mask=mask, sig=True)
+    with torch.no_grad():
+        got = int8(torch.from_numpy(x), mask=torch.from_numpy(mask), sig=True)
+    for g, w in zip(got, want):
+        d = np.abs(g.numpy() - np.asarray(w))
+        assert d.max() <= 0.05 and d.mean() <= 0.01, (d.max(), d.mean())
     fused = build_midi_extractor(dict(config, fuse_ffn=True)).eval()
     load_jax_variables(fused, jax_variables["params"], jax_variables["batch_stats"])
-    rng = np.random.default_rng(12)
-    x = torch.from_numpy(rng.standard_normal((2, 33, INDIM)).astype(np.float32))
-    mask = torch.ones((2, 33), dtype=torch.bool)
-    mask[1, 20:] = False
+    x, mask = torch.from_numpy(x), torch.from_numpy(mask)
     with torch.no_grad():
         got = fused(x, mask=mask, sig=True)
         want = _torch_model(jax_variables)(x, mask=mask, sig=True)
