@@ -46,6 +46,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
      Lightning checkpoint (tests/torch_oracle.py's ``OracleModel`` at
      production width) through ``load_engine``, its f32 forward against
      ``OracleModel``'s;
+  6b. the serving surfaces in default bf16 (``surfaces``), each from launch
+     counts at 0: the host's split of a warm file pass per song (WAV
+     decode, slicing with the Python and the native scan, wire encoding,
+     MIDI write; the native FIR against its plain version); the port's
+     ``serve.make_server`` on 127.0.0.1:0 answering 8 concurrent requests
+     (notes against the direct engine, /healthz, /stats); ``batch_infer``
+     over a DiffSinger-style set made from the songs; ``python -m
+     some_tpu_torch.stream`` fed song 0 in 100 ms chunks (first-event
+     latency, its MIDI against the offline path byte for byte); requires
+     the native host plane (some_tpu_torch/native) built and called;
   7. the engine in default bf16: a prewarm of every bucket up to 4096
      frames at rows 1-8 (its seconds and memory), and the infer CLI's cold
      case, a fresh process's ``load_engine`` + ``transcribe_file``, under
@@ -2231,6 +2241,378 @@ def oversize_split(torch, workdir: pathlib.Path, setup: dict):
             "f1_vs_plain": f1}
 
 
+# ---- the serving surfaces and the native host plane ----
+
+# ``python -m some_tpu_torch.stream`` as runpy runs it, in a process that
+# writes its kernel launches to argv[1] when the stream ends
+STREAM_CHILD = """
+import json, runpy, sys
+out = sys.argv.pop(1)
+try:
+    runpy.run_module("some_tpu_torch.stream", run_name="__main__", alter_sys=True)
+finally:
+    from chip_smoke import read_counts
+    with open(out, "w") as f:
+        json.dump(read_counts(), f)
+"""
+
+
+def median_s(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def host_split(torch, engine, setup: dict, workdir: pathlib.Path, reps: int = 5) -> dict:
+    """The host's work in a warm file pass, per song, on this machine's CPU:
+    WAV decode, slicing with the Python scan (``rms_envelope`` +
+    ``scan_silence``) and with the native one (``SilenceSlicer.slice``),
+    the wire encoding of the chunks (``bucket_groups``: padding, encode)
+    and the MIDI write; beside them the half-rate wire's FIR (its numpy
+    plain version and native, held bit for bit) and the warm file pass itself
+    (``transcribe_file``, the graphs captured). Medians of ``reps``; the
+    FIR on song 0 only, its plain version once."""
+    from some_tpu_torch import native
+    from some_tpu_torch.audio.slicer import SilenceSlicer, rms_envelope, scan_silence
+    from some_tpu_torch.audio.wavio import _decimate_fir, load_wav, wire_decimation_taps
+    from some_tpu_torch.infer import transcribe_file
+    from some_tpu_torch.inference.pipeline import MAX_SIL_KEPT_MS
+    from some_tpu_torch.utils.midi_file import build_midi_file
+
+    slicer = SilenceSlicer(sr=SR, max_sil_kept=MAX_SIL_KEPT_MS)
+    taps = wire_decimation_taps(2)
+
+    def python_slice(wave):
+        rms = rms_envelope(wave, slicer.win_size, slicer.hop_size)
+        tags = scan_silence(rms, slicer.threshold, slicer.min_interval, slicer.min_length,
+                            slicer.max_sil_kept)
+        return slicer.apply_tags(wave, tags, rms.shape[0])
+
+    songs = []
+    for i, wav in enumerate(setup["wavs"]):
+        wave = load_wav(wav, sr=SR)[0]
+        chunks, py_chunks = slicer.slice(wave), python_slice(wave)
+        if [(c["offset"], len(c["waveform"])) for c in chunks] != \
+                [(c["offset"], len(c["waveform"])) for c in py_chunks]:
+            raise AssertionError(f"song {i}: the native slicer's chunks differ from the Python "
+                                 "scan's")
+        waves = [c["waveform"] for c in chunks]
+        segments = engine.infer(waves)
+        offsets = [c["offset"] for c in chunks]
+        midi = workdir / f"host-{i}.mid"
+        ms = {name: 1e3 * median_s(fn, reps) for name, fn in (
+            ("decode", lambda: load_wav(wav, sr=SR)),
+            ("slice_python", lambda: python_slice(wave)),
+            ("slice_native", lambda: slicer.slice(wave)),
+            ("encode", lambda: engine.bucket_groups(waves)),
+            ("midi_write", lambda: build_midi_file(offsets, segments).save(midi)))}
+        if i == 0:  # the half-rate wire's FIR, once: its plain version takes seconds
+            t0 = time.perf_counter()
+            plain = _decimate_fir(wave, taps, 2)
+            ms["fir_plain"] = 1e3 * (time.perf_counter() - t0)
+            ms["fir_native"] = 1e3 * median_s(lambda: native.decimate_fir_native(wave, taps, 2),
+                                              reps)
+            if not np.array_equal(native.decimate_fir_native(wave, taps, 2), plain):
+                raise AssertionError("song 0: the native FIR differs from its plain version")
+        transcribe_file(engine, wav, midi)
+        torch.cuda.synchronize()
+        ms["file_pass"] = 1e3 * median_s(
+            lambda: (transcribe_file(engine, wav, midi), torch.cuda.synchronize()), 3)
+        rest = ms["decode"] + ms["encode"] + ms["midi_write"]
+        ms["host_python"] = rest + ms["slice_python"]
+        ms["host_native"] = rest + ms["slice_native"]
+        songs.append({"audio_s": len(wave) / SR, "chunks": len(chunks), "ms": ms,
+                      "host_share_native": ms["host_native"] / ms["file_pass"]})
+    log("host split per song (ms, medians of 5; the warm file pass of 3): " + json.dumps(
+        [{k: round(v, 3) for k, v in song["ms"].items()} for song in songs]))
+    return {"songs": songs, "reps": reps}
+
+
+def surface_launches(label: str, counts: dict, per_forward: dict) -> dict:
+    """Raise unless the path launched each kernel of ``per_forward`` and no
+    other."""
+    if any(counts[n] == 0 for n in per_forward) or any(
+            c for n, c in counts.items() if n not in per_forward):
+        raise AssertionError(f"{label}: launches {counts}, want {sorted(per_forward)} only")
+    return counts
+
+
+def serve_check(torch, engine, setup: dict, workdir: pathlib.Path) -> dict:
+    """``make_server`` on 127.0.0.1:0 over ``engine``; each song POSTed
+    twice, 8 requests at once; every reply's notes against
+    ``transcribe_waveform`` on the same engine (F1 >= 0.95; how many came
+    back byte for byte the same), /healthz ok, /stats 8 completions."""
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from some_tpu_torch.audio.wavio import load_wav
+    from some_tpu_torch.inference.pipeline import transcribe_waveform
+    from some_tpu_torch.serve import make_server
+    from some_tpu_torch.utils.midi_file import MidiFile, midi_notes_to_arrays
+    from some_tpu_torch.utils.note_f1 import note_f1
+
+    direct = []
+    for i, wav in enumerate(setup["wavs"]):
+        direct.append(workdir / f"serve-direct-{i}.mid")
+        transcribe_waveform(engine, load_wav(wav, sr=SR)[0], SR).save(direct[-1])
+    httpd, dispatcher = make_server(engine, engine.config, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    bodies = [wav.read_bytes() for wav in setup["wavs"]] * 2
+
+    def post(body):
+        req = urllib.request.Request(base + "/transcribe?tempo=120", data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, resp.read()
+
+    forwards = engine.forwards
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+            replies = list(pool.map(post, bodies))
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as resp:
+            health = json.loads(resp.read())
+        with urllib.request.urlopen(base + "/stats", timeout=30) as resp:
+            stats = json.loads(resp.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    f1s, same = [], 0
+    for i, (status, midi) in enumerate(replies):
+        if status != 200 or midi[:4] != b"MThd":
+            raise AssertionError(f"serve: request {i} answered {status}")
+        got = workdir / f"serve-reply-{i}.mid"
+        got.write_bytes(midi)
+        want = direct[i % len(direct)]
+        same += midi == want.read_bytes()
+        f1s.append(note_f1(midi_notes_to_arrays(MidiFile.load(want)),
+                           midi_notes_to_arrays(MidiFile.load(got)),
+                           onset_tolerance=0.05, pitch_tolerance=0.5).f1)
+    log(f"serve: {len(replies)} concurrent requests in {wall:.3f} s, {stats['batches']} "
+        f"batches (at most {stats['max_jobs_per_batch']} jobs), {engine.forwards - forwards} "
+        f"graph replays; note F1 against the direct engine {[round(f, 4) for f in f1s]}, "
+        f"{same} of {len(replies)} byte for byte; /healthz {health['status']}; /stats "
+        f"requests {stats['requests']}, RTF {stats['rtf']:.2f}x of device-call time")
+    if min(f1s) < 0.95 or health["status"] != "ok" or stats["requests"] != len(replies):
+        raise AssertionError(f"serve: F1 {f1s}, health {health}, stats {stats}")
+    return {"requests": len(replies), "wall_s": wall, "f1_vs_direct": f1s,
+            "byte_identical": same, "health": health, "stats": stats,
+            "replays": engine.forwards - forwards}
+
+
+def batch_infer_check(setup: dict, workdir: pathlib.Path, model: pathlib.Path) -> dict:
+    """``some_tpu_torch.batch_infer`` over a DiffSinger-style set made from
+    the songs (``wavs/*.wav``, a ``transcriptions.csv`` of seeded words of
+    1-3 phonemes spanning each song): every row gains note_seq/note_dur, as
+    many of each, and its note_dur sums to the words' span."""
+    import csv
+
+    from some_tpu_torch import batch_infer
+    from some_tpu_torch.audio.wavio import load_wav
+
+    data = workdir / "diffsinger"
+    (data / "wavs").mkdir(parents=True)
+    rng = np.random.default_rng(27182)
+    rows = []
+    for i, wav in enumerate(setup["wavs"]):
+        os.symlink(wav, data / "wavs" / f"song{i}.wav")
+        total = len(load_wav(wav, sr=SR)[0]) / SR
+        cuts = [0.0]
+        while total - cuts[-1] > 1.5:
+            cuts.append(cuts[-1] + float(rng.uniform(0.3, 1.2)))
+        cuts.append(total)
+        ph_dur, ph_num = [], []
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            n = int(rng.integers(1, 4))
+            inner = np.sort(rng.uniform(a, b, n - 1))
+            ph_dur += [round(float(d), 6) for d in np.diff(np.concatenate([[a], inner, [b]]))]
+            ph_num.append(n)
+        rows.append({"name": f"song{i}", "ph_seq": " ".join("a" * len(ph_dur)),
+                     "ph_dur": " ".join(str(d) for d in ph_dur),
+                     "ph_num": " ".join(str(n) for n in ph_num)})
+    with open(data / "transcriptions.csv", "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=["name", "ph_seq", "ph_dur", "ph_num"])
+        writer.writeheader()
+        writer.writerows(rows)
+    out = workdir / "labelled.csv"
+    t0 = time.perf_counter()
+    batch_infer.main(["--dataset", str(data), "--model", str(model), "--csv", str(out)])
+    wall = time.perf_counter() - t0
+    with open(out, newline="") as f:
+        labelled = list(csv.DictReader(f))
+    spans = []
+    for row, want in zip(labelled, rows):
+        seq, durs = row["note_seq"].split(), [float(d) for d in row["note_dur"].split()]
+        span = sum(float(d) for d in want["ph_dur"].split())
+        if not seq or len(seq) != len(durs) or abs(sum(durs) - span) > 1e-4:
+            raise AssertionError(f"batch_infer: row {row['name']}: {len(seq)} notes, "
+                                 f"{len(durs)} durations summing to {sum(durs)}, span {span}")
+        spans.append({"notes": len(seq), "span_s": span, "note_dur_sum_s": sum(durs)})
+    if len(labelled) != len(rows):
+        raise AssertionError(f"batch_infer: {len(labelled)} rows written of {len(rows)}")
+    log(f"batch_infer: {len(rows)} rows labelled in {wall:.2f} s (engine load included): "
+        + json.dumps(spans))
+    return {"rows": spans, "wall_s": wall}
+
+
+def stream_check(torch, setup: dict, workdir: pathlib.Path, model: pathlib.Path) -> dict:
+    """Song 0 as s16le PCM into ``python -m some_tpu_torch.stream`` (runpy,
+    STREAM_CHILD) in 100 ms chunks, with --prewarm-buckets set to the song's
+    buckets: fed at real-time pace from its ready marker until the first
+    event arrives (the first-event latency: that event's arrival less the
+    audio time of its phrase's end), then as fast as the pipe takes it. Its
+    --midi against the offline path on the same weights and samples,
+    ``transcribe_waveform`` with one chunk a forward as the stream
+    dispatches (required byte for byte), and with the engine's default
+    batching (recorded)."""
+    import queue
+    import threading
+
+    from some_tpu_torch.audio.wavio import load_wav
+    from some_tpu_torch.infer import load_engine
+    from some_tpu_torch.inference.base_infer import pick_bucket
+    from some_tpu_torch.inference.pipeline import slice_waveform, transcribe_waveform
+
+    wave = load_wav(setup["wavs"][0], sr=SR)[0]
+    pcm = np.clip(np.round(wave * 32768.0), -32768, 32767).astype("<i2")
+    samples = pcm.astype(np.float32) / 32768.0  # what the stream decodes
+    chunks = slice_waveform(samples, SR)
+    hop = setup["config"]["hop_size"]
+    buckets = sorted({pick_bucket(len(c["waveform"]) // hop + 1) for c in chunks})
+    midi, counts_path = workdir / "stream.mid", workdir / "stream-launches.json"
+    proc = subprocess.Popen(
+        [sys.executable, "-c", STREAM_CHILD, str(counts_path), "--model", str(model),
+         "--midi", str(midi), "--chunk-ms", "100",
+         "--prewarm-buckets", ",".join(str(b) for b in buckets)],
+        cwd=REPO, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    events, errs, ready = queue.Queue(), [], threading.Event()
+
+    def read_stdout():
+        for line in proc.stdout:
+            events.put((time.perf_counter(), json.loads(line)))
+
+    def read_stderr():
+        for line in proc.stderr:
+            errs.append(line.decode(errors="replace"))
+            if b"| ready" in line:
+                ready.set()
+
+    readers = [threading.Thread(target=read_stdout, daemon=True),
+               threading.Thread(target=read_stderr, daemon=True)]
+    for reader in readers:
+        reader.start()
+    try:
+        t_spawn = time.perf_counter()
+        if not ready.wait(timeout=240):
+            raise AssertionError("stream: no ready marker:\n" + "".join(errs)[-4000:])
+        ready_s = time.perf_counter() - t_spawn
+        step = SR // 10  # 100 ms of samples
+        t_start = time.perf_counter()
+        paced = True
+        for pos in range(0, len(pcm), step):
+            proc.stdin.write(pcm[pos:pos + step].tobytes())
+            proc.stdin.flush()
+            if paced:
+                if not events.empty():
+                    paced = False  # the first event is in: feed the rest at once
+                else:
+                    lag = (pos + step) / SR - (time.perf_counter() - t_start)
+                    if lag > 0:
+                        time.sleep(lag)
+        fed_s = time.perf_counter() - t_start
+        proc.stdin.close()
+        if proc.wait(timeout=240) != 0:
+            raise AssertionError(f"stream exited {proc.returncode}:\n" + "".join(errs)[-4000:])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for reader in readers:
+        reader.join(timeout=30)
+    got = []
+    while not events.empty():
+        got.append(events.get())
+    if len(got) != len(chunks):
+        raise AssertionError(f"stream: {len(got)} events for {len(chunks)} offline chunks")
+    t_first, first = got[0]
+    phrase_end = first["offset_sec"] + sum(first["note_dur_sec"])
+    latency = t_first - t_start - phrase_end
+    launches = json.loads(counts_path.read_text())
+
+    offline = {}
+    for name, rows in (("one_chunk_a_forward", 1), ("batched", 8)):
+        engine = load_engine(model, device="cuda", quiet=True, max_batch_chunks=rows)
+        offline[name] = transcribe_waveform(engine, samples, SR).serialize() == midi.read_bytes()
+        del engine
+    torch.cuda.empty_cache()
+    log(f"stream: song 0 ({len(samples) / SR:.2f} s, buckets {buckets}) ready {ready_s:.2f} s "
+        f"after spawn; {len(got)} events; first-event latency {latency:.3f} s (phrase end "
+        f"{phrase_end:.3f} s of audio); fed in {fed_s:.2f} s; --midi equal to the offline path "
+        f"byte for byte: " + json.dumps(offline))
+    if not offline["one_chunk_a_forward"]:
+        raise AssertionError("stream: its MIDI differs from the offline path's")
+    return {"audio_s": len(samples) / SR, "buckets": buckets, "events": len(got),
+            "ready_s": ready_s, "first_event_latency_s": latency,
+            "first_phrase_end_s": phrase_end, "fed_s": fed_s, "midi_equal_offline": offline,
+            "launches": launches}
+
+
+def surfaces(torch, workdir: pathlib.Path, setup: dict):
+    """The serving surfaces on the default bf16 configuration at production
+    width, each from launch counts at 0: the server (``load_engine`` and
+    ``prewarm`` of the songs' buckets, as ``serve --prewarm`` does, then
+    ``serve_check``; ``host_split`` runs on its engine before it serves),
+    ``batch_infer_check`` and ``stream_check``. Requires the native host
+    plane built and called (no silent fallback). Returns (results,
+    {surface: launches})."""
+    from some_tpu_torch import native
+    from some_tpu_torch.infer import load_engine
+
+    if not native.native_available():
+        raise AssertionError(f"the native host plane did not build: "
+                             f"{native.unavailable_reason()}")
+    native.reset_calls()
+    model = workdir / "default-bf16" / "model.pt"
+    blocks = setup["blocks"]
+    per_forward = {"depthwise_conv1d": blocks, "flash_attention": blocks}
+    launches = {}
+
+    reset_counts()
+    engine = load_engine(model, device="cuda", quiet=True)
+    n_graphs = engine.prewarm(setup["buckets"])
+    result = {"host_split": host_split(torch, engine, setup, workdir),
+              "serve": serve_check(torch, engine, setup, workdir)}
+    if engine.graphs_captured != n_graphs:
+        raise AssertionError(f"serve: {engine.graphs_captured - n_graphs} graphs captured "
+                             "after the prewarm")
+    result["serve"]["graph_launches"] = {n: c * result["serve"]["replays"]
+                                         for n, c in per_forward.items()}
+    launches["serve"] = surface_launches("serve", read_counts(), per_forward)
+    del engine
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    result["batch_infer"] = batch_infer_check(setup, workdir, model)
+    launches["batch_infer"] = surface_launches("batch_infer", read_counts(), per_forward)
+    torch.cuda.empty_cache()
+
+    result["stream"] = stream_check(torch, setup, workdir, model)
+    launches["stream"] = surface_launches("stream", result["stream"].pop("launches"),
+                                          per_forward)
+    calls = native.read_calls()
+    if not (calls["rms_envelope_native"] and calls["slicer_scan_native"]
+            and calls["decimate_fir_native"]):
+        raise AssertionError(f"the native host plane was not called: {calls}")
+    result["native_calls"] = calls
+    log(f"surfaces: launches {json.dumps(launches)}; native calls {json.dumps(calls)}")
+    return result, launches
+
+
 def max_sm_clock_mhz() -> float:
     """The card's maximum SM clock, as nvidia-smi reports it."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -2335,6 +2717,8 @@ def main() -> int:
             "train_discrete", train_path, torch, work, 8, discrete=True)
         results["lightning"] = phase("lightning", lightning_check, torch, work, setup)
         launches["lightning"] = results["lightning"]["launches"]
+        results["surfaces"], surface_counts = phase("surfaces", surfaces, torch, work, setup)
+        launches.update(surface_counts)
         # after every profiled replay: with these 66 graphs captured earlier
         # in the process, torch.profiler has missed a kernel record of a replay
         model = work / "default-bf16" / "model.pt"

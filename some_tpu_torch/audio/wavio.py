@@ -13,6 +13,8 @@ import numpy as np
 from scipy.io import wavfile
 from scipy.signal import resample_poly
 
+from some_tpu_torch import native
+
 _PCM_SCALE = {np.dtype(np.int16): 32768.0, np.dtype(np.int32): 2147483648.0,
               np.dtype(np.uint8): 128.0}
 
@@ -69,14 +71,31 @@ def wire_decimation_taps(factor: int) -> np.ndarray:
     return taps
 
 
+def _fma_f32(t: float, x: np.ndarray, acc: np.ndarray) -> np.ndarray:
+    """The f32 fused multiply-add ``t * x + acc``, rounded once, for f32
+    values held in f64 (``t``, ``x``) and f32 ``acc``. The product is exact
+    in f64 and TwoSum gives the f64 sum's rounding error; rounding that sum
+    to f32 is then wrong only where it fell exactly on the midpoint between
+    two f32 values while the error points past it (double rounding), and
+    those elements take the neighbour."""
+    prod = t * x
+    acc = acc.astype(np.float64)
+    hi = acc + prod
+    back = hi - acc
+    lo = (acc - (hi - back)) + (prod - back)
+    out = hi.astype(np.float32)
+    off = hi - out  # exact: hi and out are within an f32 ulp
+    toward = np.nextafter(out, np.where(off > 0, np.float32(np.inf), np.float32(-np.inf)))
+    past = (off != 0) & (2 * off == toward.astype(np.float64) - out) & (lo * off > 0)
+    return np.where(past, toward, out)
+
+
 def _decimate_fir(x: np.ndarray, taps: np.ndarray, factor: int) -> np.ndarray:
     """``resample_poly(x, 1, factor, window=taps)`` for odd gain-1 taps, in
-    the JAX package's native arithmetic (``decimate_fir`` of
-    some_tpu/native/audio_frontend.cpp): out[i] = sum_k taps[k] * xz[factor
+    the native arithmetic (``decimate_fir`` of
+    some_tpu_torch/native/audio_frontend.cpp): out[i] = sum_k taps[k] * xz[factor
     i + k - half], summed phase by phase and tap by tap in f32, each step a
-    fused multiply-add (the native build contracts it). An f32 FMA is one
-    rounding of an exact product plus the sum; here the product is exact in
-    f64 and the f64 sum rounds to f32."""
+    fused multiply-add (the native build contracts it): ``_fma_f32``."""
     n, n_taps = len(x), len(taps)
     half = n_taps // 2
     n_out = -(-n // factor)
@@ -97,7 +116,7 @@ def _decimate_fir(x: np.ndarray, taps: np.ndarray, factor: int) -> np.ndarray:
             t = float(taps[k])
             if t == 0.0:
                 continue
-            out = (out + t * phase[a:a + n_out]).astype(np.float32)
+            out = _fma_f32(t, phase[a:a + n_out], out)
     return out
 
 
@@ -106,12 +125,16 @@ def decimate_wire(audio: np.ndarray, factor: int) -> np.ndarray:
     gain 1 in the passband. The STFT magnitude of the shorter analysis
     window is compensated in the device mel (``LogMelSpec(mag_scale=)``),
     not here, so wire encoding and silence thresholds see true amplitudes.
-    A 1-D waveform takes the JAX package's native FIR arithmetic, anything
-    else its scipy path, as the JAX function does."""
+    A 1-D waveform takes the native FIR (``native.decimate_fir_native``),
+    or ``_decimate_fir``, its plain version, where the native host plane is
+    unavailable; anything else the scipy path, as the JAX function does."""
     if factor == 1:
         return np.asarray(audio, dtype=np.float32)
     taps = wire_decimation_taps(factor)
     if np.ndim(audio) == 1:
-        return _decimate_fir(np.asarray(audio, np.float32), taps, factor)
+        x = np.asarray(audio, np.float32)
+        if native.native_available():
+            return native.decimate_fir_native(x, taps, factor)
+        return _decimate_fir(x, taps, factor)
     return resample_poly(np.asarray(audio, dtype=np.float32), 1, factor,
                          axis=-1, window=taps).astype(np.float32)

@@ -5,8 +5,9 @@ port's own (``torch.save``), a native SOME-TPU msgpack checkpoint, or a
 reference Lightning ``.ckpt``; its ``config.yaml`` sits beside it. Runs on
 the GPU unless ``--device cpu``. ``--quantize int8`` serves the int8 model
 (``ops/quant.py``), ``--wire-sr`` sends the audio to the card decimated to
-that rate. The JAX CLI's ``--devices`` (a data-parallel mesh) has no
-counterpart on one card.
+that rate. The JAX CLI's ``--devices N`` (a data-parallel mesh) has no
+counterpart on one card: above 1 it raises (``check_devices``), here and in
+every serving surface of the port.
 
     python -m some_tpu_torch.infer --model CKPT --wav in.wav [--midi out.mid]
         [--quantize none|int8] [--wire-sr 22050] [--device cpu]
@@ -22,10 +23,25 @@ from some_tpu_torch.inference.base_infer import build_inference
 from some_tpu_torch.inference.pipeline import transcribe_waveform
 
 
+def check_devices(devices: int) -> None:
+    """Refuse the JAX CLIs' ``--devices N`` above 1: the port serves on one
+    card."""
+    if devices > 1:
+        raise NotImplementedError(
+            f"--devices {devices}: serving over several cards (the JAX CLIs' data-parallel "
+            "mesh) is not ported; some_tpu_torch serves on one card")
+
+
+def parse_buckets(text: str | None) -> list:
+    """'768,1024' -> [768, 1024]: the frame buckets of a ``--prewarm`` option."""
+    return [int(b) for b in (text or "").split(",") if b.strip()]
+
+
 def load_engine(model_path: pathlib.Path | str, device=None, quiet: bool = False,
-                quantize: str | None = None, wire_sr: int | None = None):
+                quantize: str | None = None, wire_sr: int | None = None, **engine_kwargs):
     """The inference engine for a checkpoint and the config.yaml beside it;
-    ``quantize`` and ``wire_sr`` override the config's keys."""
+    ``quantize`` and ``wire_sr`` override the config's keys, and
+    ``engine_kwargs`` (``max_batch_chunks``, ``dtype``) go to the engine."""
     model_path = pathlib.Path(model_path)
     config = load_yaml(model_path.with_name("config.yaml"))
     if quantize is not None:
@@ -34,7 +50,7 @@ def load_engine(model_path: pathlib.Path | str, device=None, quiet: bool = False
         config["wire_sr"] = wire_sr
     if not quiet:
         print_config(config)
-    return build_inference(config, model_path, device=device)
+    return build_inference(config, model_path, device=device, **engine_kwargs)
 
 
 def transcribe_file(engine, wav, midi=None, tempo: float = 120) -> pathlib.Path:
@@ -58,9 +74,12 @@ def main(argv=None) -> None:
                         help="serving quantization (default: the config's, else none)")
     parser.add_argument("--wire-sr", type=int, default=None,
                         help="decimate the audio sent to the device to this rate (e.g. 22050)")
+    parser.add_argument("--devices", type=int, default=1,
+                        help="cards to serve on; the port serves on one")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; cpu runs the plain versions)")
     args = parser.parse_args(argv)
+    check_devices(args.devices)
     engine = load_engine(args.model, device=args.device, quantize=args.quantize,
                          wire_sr=args.wire_sr)
     midi_path = transcribe_file(engine, args.wav, args.midi, args.tempo)

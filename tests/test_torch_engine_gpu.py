@@ -252,3 +252,41 @@ def test_failed_capture_raises(cuda, state, monkeypatch):
     with pytest.raises(RuntimeError):
         engine.run_bucket(audio, mask)
     assert engine.graphs_captured == 0 and engine.forwards == 1
+
+
+def test_served_request_replays_its_prewarmed_graph(cuda, state, tmp_path):
+    """A request to the port's server (some_tpu_torch/serve.py) replays the
+    bucket graph that prewarm captured: it calls no kernel wrapper, and its
+    K1 and K2 launches are the kernel nodes of that graph, one of each per
+    conformer block."""
+    import threading
+    import urllib.request
+
+    from chip_smoke import read_counts, reset_counts
+
+    from some_tpu_torch.audio.wavio import save_wav
+    from some_tpu_torch.serve import make_server
+
+    engine = make_engine(state, dtype="bf16")
+    wave = tone(3.0, 440, 3)  # under the slicer's 5 s minimum: one chunk, one row
+    ((_, audio, mask),), _ = engine.bucket_groups([wave])
+    engine.prewarm([mask.shape[1]], rows=(1,))
+    captured, forwards = engine.graphs_captured, engine.forwards
+    path = tmp_path / "request.wav"
+    save_wav(path, wave, SR)
+    reset_counts()
+    httpd, _ = make_server(engine, engine.config, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}/transcribe",
+                                     data=path.read_bytes(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            assert resp.status == 200 and resp.read()[:4] == b"MThd"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    replays = engine.forwards - forwards
+    assert replays == 1 and engine.graphs_captured == captured
+    assert not any(read_counts().values())  # a replay calls no wrapper
+    nodes = hand_written(graph_kernel_nodes(torch, engine, audio, mask))
+    assert {name: replays * n for name, n in nodes.items()} == PER_FORWARD["default"]

@@ -114,8 +114,14 @@ def test_oversize_split_matches_jax(variables):
 
 
 def test_port_imports_no_jax():
+    """No module of the port (the serving surfaces included) or chip_smoke
+    imports JAX, the JAX package or a package the card's machine lacks.
+    tqdm and gradio count beyond what ``import torch`` loads itself: where
+    tqdm is installed, torch.hub imports it."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "import torch\n"
+        "torch_own = set(sys.modules)\n"
         "import some_tpu_torch\n"
         "for m in pkgutil.walk_packages(some_tpu_torch.__path__, 'some_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -123,6 +129,8 @@ def test_port_imports_no_jax():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'some_tpu', 'yaml', 'click', 'msgpack', "
         "'h5py', 'tensorboardX', 'matplotlib'))\n"
+        "bad += sorted(n for n in set(sys.modules) - torch_own if n.split('.')[0] in "
+        "('tqdm', 'gradio'))\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('some_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
@@ -140,6 +148,15 @@ def test_engine_without_device_needs_cuda(monkeypatch, tmp_path, variables, song
     (tmp_path / "config.yaml").write_text(yaml.safe_dump(CONFIG))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_cli(["--model", str(tmp_path / "model.ckpt"), "--wav", str(songs[0])])
+
+
+def test_cli_refuses_several_devices(tmp_path, songs):
+    """The JAX CLI's --devices N (a data-parallel mesh) raises above 1."""
+    from some_tpu_torch.infer import main as port_cli
+
+    with pytest.raises(NotImplementedError, match="--devices 2: serving over several cards"):
+        port_cli(["--model", str(tmp_path / "model.pt"), "--wav", str(songs[0]),
+                  "--devices", "2"])
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -1,7 +1,19 @@
 """The port's audio wires and half-rate wire against the JAX package's, on
 the same numpy inputs: encode (host, numpy), decode (device, torch on the
 CPU), the silence buffers, the decimation of the half-rate wire, and the
-log-mel of the decimated audio with its magnitude scale."""
+log-mel of the decimated audio with its magnitude scale.
+
+The decimation is held bit for bit against the JAX package's native FIR,
+whose library some_tpu/native builds on first use straight to its final
+path, guarded by a thread lock only: a pytest-xdist worker that loads it
+while another writes it fails to load and keeps that failure for its life.
+``load_jax_native`` takes a file lock that every worker shares, resets a
+failed load and, where the library still does not load, rebuilds it."""
+import fcntl
+import pathlib
+import shutil
+import tempfile
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +23,7 @@ import torch
 from some_tpu.audio import wire as jax_wire
 from some_tpu.audio.wavio import decimate_wire as jax_decimate_wire
 from some_tpu.audio.wavio import wire_decimation_taps as jax_taps
-from some_tpu.native import get_lib as jax_native_lib
+import some_tpu.native as jax_native
 from some_tpu.ops.melspec import LogMelSpec as JaxLogMelSpec
 from some_tpu_torch.audio import wire
 from some_tpu_torch.audio.wavio import decimate_wire, wire_decimation_taps
@@ -26,6 +38,34 @@ WIRES = ("int16", "float32", "mulaw8", "mulaw12")
 # 3 ulp (mulaw8) and 4 (mulaw12) of eager JAX and 10 and 3 of jitted JAX; it
 # is held to 4 ulp of eager JAX and 16 of jitted (+ 2^-24 near zero).
 EAGER_ULPS, JIT_ULPS = 4, 16
+
+
+JAX_NATIVE_LOCK = pathlib.Path(tempfile.gettempdir()) / "some_tpu_native_build.lock"
+
+
+def load_jax_native():
+    """The JAX package's native library, loaded under a file lock shared by
+    every test process: if ``get_lib()`` gave None in this process (a load of
+    a file another process was still writing), forget that and load again;
+    if it still does not load, rebuild it through ``some_tpu.native._build``
+    and load that."""
+    with open(JAX_NATIVE_LOCK, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        lib = jax_native.get_lib()
+        if lib is None:
+            jax_native._lib, jax_native._build_failed = None, False
+            lib = jax_native.get_lib()
+        if lib is None:
+            assert jax_native._build(), "g++ could not build the JAX package's native library"
+            jax_native._lib, jax_native._build_failed = None, False
+            lib = jax_native.get_lib()
+    assert lib is not None, "the JAX package's native FIR did not load"
+    return lib
+
+
+@pytest.fixture(scope="module")
+def jax_native_lib():
+    return load_jax_native()
 
 
 def _wave(shape, seed):
@@ -95,10 +135,10 @@ def test_mulaw12_odd_rows_and_silence_code():
 
 
 @pytest.mark.parametrize("n", [1, 2, 5, 129, 1000, 44101])
-def test_decimate_matches_jax_bit_for_bit(n):
+def test_decimate_matches_jax_bit_for_bit(jax_native_lib, n):
     """A 1-D waveform through the JAX package's native FIR (its arithmetic
-    the port repeats in numpy); a batch through scipy in both."""
-    assert jax_native_lib() is not None, "the JAX package's native FIR did not build"
+    the port's native FIR and its numpy plain version repeat); a batch
+    through scipy in both."""
     rng = np.random.default_rng(n)
     x = (0.4 * np.sin(np.arange(n) * 0.05) + 0.01 * rng.standard_normal(n)).astype(np.float32)
     np.testing.assert_array_equal(wire_decimation_taps(2), jax_taps(2))
@@ -108,6 +148,31 @@ def test_decimate_matches_jax_bit_for_bit(n):
     batch = np.stack([x, x[::-1]])
     np.testing.assert_array_equal(decimate_wire(batch, 2), jax_decimate_wire(batch, 2))
     np.testing.assert_array_equal(decimate_wire(x, 1), x)
+
+
+def test_jax_native_loader_recovers_a_partial_library(jax_native_lib, monkeypatch, tmp_path):
+    """What a worker sees when it loads the library while another process is
+    still writing it: ``get_lib()`` on a truncated file gives None, and
+    ``load_jax_native`` still gives the native FIR's bits. The copy is cut
+    inside its ELF program headers, where the dynamic loader refuses it
+    (cut further on, the loader maps it and the process faults with SIGBUS
+    instead)."""
+    real = pathlib.Path(jax_native._LIB_PATH)
+    partial = tmp_path / real.name
+    shutil.copyfile(real, partial)
+    with open(partial, "r+b") as f:
+        f.truncate(64)
+    monkeypatch.setattr(jax_native, "_LIB_PATH", partial)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_build_failed", False)
+    assert jax_native.get_lib() is None
+    assert load_jax_native() is not None
+    assert partial.stat().st_size == real.stat().st_size
+    rng = np.random.default_rng(9)
+    x = (0.4 * np.sin(np.arange(3001) * 0.05) + 0.01 * rng.standard_normal(3001)).astype(np.float32)
+    want = jax_decimate_wire(x, 2)
+    np.testing.assert_array_equal(want, jax_native.decimate_fir_native(x, jax_taps(2), 2))
+    np.testing.assert_array_equal(decimate_wire(x, 2), want)
 
 
 def test_half_rate_log_mel_matches_jax():
