@@ -39,7 +39,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      4 for the default configuration in bf16 and f32 and the opt-in one in
      bf16, whose graphs hold no K3; notes also against the unquantized
      engine; resident weight bytes); ``mel_method: dft`` (its log-mel
-     against rfft on the card, notes, the mels' device time); the engine's
+     against rfft on the card, and at every bin against an f64 log-mel no
+     farther than the CPU's dft; the two products on the card and on the
+     CPU in f32 and f64, with their times; notes, the mels' device time);
+     the engine's
      oversize split (frame buckets cut at 256) graph vs eager; the discrete
      model (configs/discrete.yaml, 129 classes) through the infer CLI and
      ``Trainer.fit`` in bf16 with launch counts per step; a reference
@@ -56,6 +59,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
      some_tpu_torch.stream`` fed song 0 in 100 ms chunks (first-event
      latency, its MIDI against the offline path byte for byte); requires
      the native host plane (some_tpu_torch/native) built and called;
+  6c. preprocessing (``binarize``): RMVPE at the published geometry on
+     seeded random weights saved as an upstream ``model.pt``, one packed
+     8-row chunk of 5-60 s songs on the card and two songs against the CPU
+     (probabilities, f0, voicing); the binarizer (``pe: rmvpe``, mel units,
+     key shifts) over 16 songs on the card and on the CPU, item for item,
+     with the ``bench_binarize`` line of the card's pass, then two train
+     steps of the default model on the card's items; ContentVec at full
+     HuBERT-base width, card against CPU and padded against unpadded;
   7. the engine in default bf16: a prewarm of every bucket up to 4096
      frames at rows 1-8 (its seconds and memory), and the infer CLI's cold
      case, a fresh process's ``load_engine`` + ``transcribe_file``, under
@@ -2042,6 +2053,86 @@ def f64_log_mel(wave: np.ndarray, config: dict) -> np.ndarray:
     return np.log(np.maximum(magnitude @ basis.T, 1e-5))
 
 
+def dft_products(torch, wave: np.ndarray, config: dict) -> dict:
+    """Where the dft log-mel loses its quiet bins: the two products
+    (frames @ dft_cos, frames @ dft_sin) of the same f32 operands on the card
+    and on the CPU, in f32 and in f64, each against the f64 product of those
+    operands (|d| over the product's scale, sum |frame x matrix|); then the
+    log-mel of three ways of taking them on the card (f32 as JAX's HIGHEST
+    einsum; f32 with the matrices split into f32 hi + lo; f64 products of
+    f64 matrices) beside cuFFT's, each against the f64 log-mel at every bin,
+    and the products' times on the card."""
+    from some_tpu_torch.audio.mel import hann_window
+    from some_tpu_torch.ops.melspec import LogMelSpec
+
+    mel = LogMelSpec(n_mels=config["units_dim"], sample_rate=config["audio_sample_rate"],
+                     win_length=config["win_size"], hop_length=config["hop_size"],
+                     fmin=config["fmin"], fmax=config["fmax"], method="dft", device="cpu")
+    win, hop = config["win_size"], config["hop_size"]
+    x = np.pad(wave, ((0, 0), (win // 2, (win + 1) // 2)))
+    frames = np.ascontiguousarray(
+        np.lib.stride_tricks.sliding_window_view(x, win, axis=-1)[:, ::hop]).reshape(-1, win)
+    cos32, sin32 = mel.dft_cos.numpy(), mel.dft_sin.numpy()
+    f_cpu, f_gpu = torch.from_numpy(frames), torch.from_numpy(frames).cuda()
+    err = {}
+    for name, m32 in (("cos", cos32), ("sin", sin32)):
+        want = frames.astype(np.float64) @ m32.astype(np.float64)
+        scale = np.abs(frames).astype(np.float64) @ np.abs(m32).astype(np.float64)
+        m_cpu, m_gpu = torch.from_numpy(m32), torch.from_numpy(m32).cuda()
+        for tag, got in (("card_f32", (f_gpu @ m_gpu).cpu().numpy()),
+                         ("cpu_f32", (f_cpu @ m_cpu).numpy()),
+                         ("card_f64", (f_gpu.double() @ m_gpu.double()).cpu().numpy()),
+                         ("cpu_f64", (f_cpu.double() @ m_cpu.double()).numpy())):
+            d = np.abs(got.astype(np.float64) - want) / np.maximum(scale, 1e-30)
+            err[f"{name}_{tag}"] = {"max": float(d.max()), "mean": float(d.mean())}
+
+    # the spectra on the card: the candidates and cuFFT, as log-mel against f64
+    n = np.arange(win)[:, None]
+    k = np.arange(mel._k_lo, mel._k_hi)[None, :]
+    window = hann_window(win)
+    cos64 = torch.tensor(np.cos(2 * np.pi * n * k / win) * window[:, None], device="cuda")
+    sin64 = torch.tensor(-np.sin(2 * np.pi * n * k / win) * window[:, None], device="cuda")
+    cos_hi, sin_hi = cos64.float(), sin64.float()
+    cos_lo, sin_lo = (cos64 - cos_hi.double()).float(), (sin64 - sin_hi.double()).float()
+    basis = mel.basis_trim.cuda()
+    rfft_mel = LogMelSpec(n_mels=config["units_dim"], sample_rate=config["audio_sample_rate"],
+                          win_length=win, hop_length=hop, fmin=config["fmin"],
+                          fmax=config["fmax"], device="cuda")
+
+    def spectra(kind):
+        f = f_gpu
+        if kind == "f32":
+            re, im = f @ cos_hi, f @ sin_hi
+        elif kind == "f32_hi_lo":
+            re, im = f @ cos_hi + f @ cos_lo, f @ sin_hi + f @ sin_lo
+        else:
+            f = f.double()
+            re, im = (f @ cos64).float(), (f @ sin64).float()
+        return torch.sqrt(re * re + im * im)
+
+    def cufft():
+        spec = torch.fft.rfft(f_gpu * rfft_mel.window, dim=-1)
+        return spec[..., mel._k_lo:mel._k_hi].abs()
+
+    ref = f64_log_mel(wave, config).reshape(-1, config["units_dim"])
+    logmel = {}
+    ms = {}
+    for kind, fn in (("f32", lambda: spectra("f32")), ("f32_hi_lo", lambda: spectra("f32_hi_lo")),
+                     ("f64", lambda: spectra("f64")), ("cufft", cufft)):
+        got = torch.log(torch.clamp(fn() @ basis.T, min=1e-5)).cpu().numpy()
+        quiet = ref < np.log(1e-3)
+        d = np.abs(got - ref)
+        logmel[kind] = {"all": float(d.max()), "quiet": float(d[quiet].max()),
+                        "loud": float(d[~quiet].max())}
+        ms[kind] = median_ms(torch, fn)
+    cpu = mel(torch.from_numpy(wave)).numpy().reshape(-1, config["units_dim"])
+    logmel["cpu_f32"] = {"all": float(np.abs(cpu - ref).max())}
+    out = {"frames": list(frames.shape), "products_rel_err": err, "logmel_vs_f64": logmel,
+           "spectrum_ms": ms}
+    log("dft products: " + json.dumps(out))
+    return out
+
+
 def mel_check(torch, setup: dict, workdir: pathlib.Path):
     """``mel_method: dft`` in one default bf16 engine on the four songs
     (graph dispatch after prewarm), its log-mel against the rfft one on the
@@ -2085,24 +2176,30 @@ def mel_check(torch, setup: dict, workdir: pathlib.Path):
     rfft = LogMelSpec(n_mels=config["units_dim"], sample_rate=config["audio_sample_rate"],
                       win_length=config["win_size"], hop_length=config["hop_size"],
                       fmin=config["fmin"], fmax=config["fmax"], device="cuda")
+    cpu_dft = LogMelSpec(n_mels=config["units_dim"], sample_rate=config["audio_sample_rate"],
+                         win_length=config["win_size"], hop_length=config["hop_size"],
+                         fmin=config["fmin"], fmax=config["fmax"], method="dft", device="cpu")
     groups, _ = engine.bucket_groups(setup["chunks"])
     err = {"dft_vs_rfft_above_1e-3": 0.0, "dft_vs_rfft": 0.0, "dft_vs_f64": 0.0,
-           "rfft_vs_f64": 0.0}
+           "rfft_vs_f64": 0.0, "cpu_dft_vs_f64": 0.0}
     largest = None
     for _, audio, mask in groups:
         wave = decode_wire_device(torch.from_numpy(audio).cuda(), engine.wire,
                                   n_samples=mask.shape[1] * engine.hop - 1)
         got, want = engine.mel(wave).cpu().numpy(), rfft(wave).cpu().numpy()
+        on_cpu = cpu_dft(wave.cpu()).numpy()
         ref = f64_log_mel(wave.cpu().numpy(), config)
         loud = mask[..., None] & (ref >= np.log(1e-3))
         real = np.broadcast_to(mask[..., None], ref.shape)
         for key, value in (("dft_vs_rfft_above_1e-3", np.abs(got - want)[loud]),
                            ("dft_vs_rfft", np.abs(got - want)[real]),
                            ("dft_vs_f64", np.abs(got - ref)[real]),
-                           ("rfft_vs_f64", np.abs(want - ref)[real])):
+                           ("rfft_vs_f64", np.abs(want - ref)[real]),
+                           ("cpu_dft_vs_f64", np.abs(on_cpu - ref)[real])):
             err[key] = max(err[key], float(value.max()))
         if largest is None or wave.numel() > largest.numel():
             largest = wave
+    products = dft_products(torch, largest.cpu().numpy(), config)
     mel_ms = {name: {"ms": median_ms(torch, lambda: mel(largest)),
                      "device_ms": device_ms(torch, lambda: mel(largest), calls=10)}
               for name, mel in (("dft", engine.mel), ("rfft", rfft))}
@@ -2112,13 +2209,18 @@ def mel_check(torch, setup: dict, workdir: pathlib.Path):
         f"RTF {audio_s / statistics.median(walls):.2f}x; mel device ms on "
         f"{list(largest.shape)} samples: {mel_ms}; pass device ms "
         f"{prof['device_ms']:.1f}, by group {prof['by_group_ms']}")
+    log(f"dft mel at every bin against the f64 log-mel: the card {err['dft_vs_f64']:.3e}, "
+        f"the port's CPU dft {err['cpu_dft_vs_f64']:.3e}; the spectrum's ms on the card "
+        f"{json.dumps(products['spectrum_ms'])} (f32: the products before, f64: now)")
     if not err["dft_vs_rfft_above_1e-3"] <= 1e-2:
         raise AssertionError(f"dft log-mel differs from rfft: {err}")
+    if not err["dft_vs_f64"] <= err["cpu_dft_vs_f64"]:
+        raise AssertionError(f"dft log-mel on the card is farther from f64 than the CPU's: {err}")
     del engine
     torch.cuda.empty_cache()
     return {"max_abs_logmel": err, "f1_vs_rfft": f1,
             "rtf_warm_median": audio_s / statistics.median(walls), "mel_device_ms": mel_ms,
-            "mel_samples_shape": list(largest.shape), "profile": prof}
+            "mel_samples_shape": list(largest.shape), "profile": prof, "dft_products": products}
 
 
 class AttributeDict(dict):
@@ -2613,6 +2715,171 @@ def surfaces(torch, workdir: pathlib.Path, setup: dict):
     return result, launches
 
 
+def sung_songs(seconds, seed: int) -> list:
+    """Songs of the given lengths at 44.1 kHz, cut from make_song's melodies."""
+    return [make_song(seed + i, phrases=int(s // 6) + 1)[:int(s * SR)]
+            for i, s in enumerate(seconds)]
+
+
+def voicing_report(got: np.ndarray, want: np.ndarray, peak: np.ndarray) -> dict:
+    """Card vs CPU f0 curves (10 ms, Hz; 0 unvoiced): voicing agreement, the
+    frames whose probability maximum lies within 1e-4 of the 0.03 threshold,
+    the flips outside them, and the largest f0 difference in cents where
+    both are voiced."""
+    flip = (got > 0) != (want > 0)
+    near = np.abs(peak - 0.03) <= 1e-4
+    both = (got > 0) & (want > 0)
+    cents = 1200 * np.abs(np.log2(got[both] / want[both])) if both.any() else np.zeros(1)
+    return {"frames": int(got.size), "voiced_both": int(both.sum()),
+            "agreement": float(1 - flip.mean()), "near_threshold": int(near.sum()),
+            "flips_off_threshold": int((flip & ~near).sum()),
+            "max_cents_voiced_both": float(cents.max())}
+
+
+def binarize_check(torch, workdir: pathlib.Path, shortest: float = 5.0, longest: float = 60.0):
+    """The preprocessing path on the card (``some_tpu_torch.binarize``'s):
+
+    1. RMVPE at the published geometry (5 levels from 16 channels, 4 blocks,
+       4 intermediate layers, BiGRU 256), seeded random weights with random
+       BatchNorm statistics, saved as an upstream ``model.pt`` and loaded:
+       one packed 8-row chunk of songs of 5-60 s on the card (its time and
+       peak memory); two songs of about 10 s against the CPU, probabilities
+       to 5e-5 + 1e-4 |want|, f0 in cents where both are voiced, voicing
+       agreement (flips only within 1e-4 of the 0.03 threshold);
+    2. the binarizer on a DiffSinger dataset of 16 songs of 5-60 s
+       (``bench_binarize``'s, ``pe: rmvpe`` on that file, mel units,
+       ``key_shift_factor: 2``): ``prepare_items`` and ``process_item`` over
+       both splits on the card and on the CPU (no HDF5 write: the card's
+       machine has no h5py), every item's labels and units equal, its pitch
+       within 1e-3 semitone; the bench_binarize line of the card's pass;
+       then two train steps of the default model (configs/midi_conformer.yaml)
+       on the card's items, with K1 and K2 launches counted from 0;
+    3. ContentVec at full HuBERT-base width (768, 12 heads, FFN 3072, output
+       layer 9) on seeded random weights: two songs of about 5 s on the card
+       against the CPU (5e-5 + 1e-4 |want|), and the bucketed, masked
+       forward against the unpadded one."""
+    from some_tpu_torch import bench_binarize
+    from some_tpu_torch.audio.wavio import resample
+    from some_tpu_torch.nn import rmvpe as R
+    from some_tpu_torch.nn.contentvec import ContentVecEncoder
+
+    d = workdir / "binarize"
+    d.mkdir()
+    result, t_phase = {}, time.perf_counter()
+    ckpt = bench_binarize.save_random_rmvpe(d / "model.pt", seed=2718)
+    card, cpu = R.RMVPE(ckpt, device="cuda"), R.RMVPE(ckpt, device="cpu")
+
+    # 1. RMVPE: one packed chunk at full width, then card vs CPU
+    songs = sung_songs(np.linspace(shortest, longest, 8), seed=500)
+    mels = [card.audio_to_mel(w, SR) for w in songs]
+    (chunk, batch, t_valid), = list(card._packed_chunks(mels))
+    torch.cuda.reset_peak_memory_stats()
+    run = lambda: card._forward(batch, t_valid)  # noqa: E731
+    chunk_ms = median_ms(torch, run, reps=3, warmup=1)
+    hidden = run().cpu().numpy()
+    if not np.isfinite(hidden).all() or hidden.std() < 1e-3:
+        raise AssertionError(f"RMVPE chunk output: finite {np.isfinite(hidden).all()}, "
+                             f"std {hidden.std()}")
+    result["rmvpe_chunk"] = {"rows_frames": list(batch.shape[:2]), "t_valid": t_valid.tolist(),
+                             "ms": chunk_ms,
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del hidden
+    two = sung_songs([10.3, 9.7], seed=600)
+    two_mels = [cpu.audio_to_mel(w, SR) for w in two]
+    worst = 0.0
+    for got, want in zip(card.mel2hidden_batch(two_mels), cpu.mel2hidden_batch(two_mels)):
+        worst = max(worst, float((np.abs(got - want) / (5e-5 + 1e-4 * np.abs(want))).max()))
+    voicing = []
+    for m, got, want in zip(two_mels, card.f0_batch(two, SR), cpu.f0_batch(two, SR)):
+        voicing.append(voicing_report(got, want, cpu.mel2hidden(m)[0].max(axis=1)))
+    result["rmvpe_vs_cpu"] = {"max_prob_diff_over_tol": worst, "voicing": voicing}
+    log(f"binarize: RMVPE chunk {result['rmvpe_chunk']}; card vs CPU on two ~10 s songs: "
+        f"{json.dumps(result['rmvpe_vs_cpu'])}")
+    if worst > 1 or any(v["flips_off_threshold"] or v["max_cents_voiced_both"] > 0.01
+                        for v in voicing):
+        raise AssertionError(f"RMVPE on the card differs from the CPU: {result['rmvpe_vs_cpu']}")
+    result["rmvpe_s"] = time.perf_counter() - t_phase
+
+    # 2. the binarizer: the card's pass against the CPU's, then two train steps
+    t0 = time.perf_counter()
+    seconds = [float(s) for s in np.round(np.linspace(shortest, longest, 16), 1)]
+    audio_s = bench_binarize.write_song_dataset(d / "raw", np.random.default_rng(42), seconds)
+    passes = {}
+    for device in ("cuda", "cpu"):
+        config = bench_binarize.bench_config(d / "raw", d / f"binary-{device}", ckpt, aug=2,
+                                             units_dim=80)
+        passes[device] = bench_binarize.timed_pass(config, device, write=False)
+    line = bench_binarize.bench_line(passes["cuda"][0], len(seconds), audio_s, "cuda",
+                                     bucket=True, batched_pitch=True, aug_factor=2)
+    log("bench_binarize (the card's pass): " + json.dumps(line))
+    pitch_diff, n_items = 0.0, 0
+    for prefix in ("valid", "train"):
+        got = [i for group in passes["cuda"][1][prefix] for i in group]
+        want = [i for group in passes["cpu"][1][prefix] for i in group]
+        if len(got) != len(want) or not got:
+            raise AssertionError(f"{prefix}: {len(got)} items on the card, {len(want)} on the CPU")
+        for a, b in zip(got, want):
+            if a.keys() != b.keys():
+                raise AssertionError(f"{prefix}: keys {sorted(a)} vs {sorted(b)}")
+            for key in a:
+                if key == "pitch":
+                    pitch_diff = max(pitch_diff, float(np.abs(a[key] - b[key]).max()))
+                elif not np.array_equal(a[key], b[key]):
+                    raise AssertionError(f"{prefix} item {n_items}: {key} differs card vs CPU")
+            n_items += 1
+    if pitch_diff > 1e-3:
+        raise AssertionError(f"binarized pitch differs card vs CPU by {pitch_diff} semitones")
+    result["binarizer"] = {"items": n_items, "max_pitch_diff_semitones": pitch_diff,
+                           "bench_binarize": line, "cpu_pass_s": passes["cpu"][0]["wall_s"]}
+    train_items = sorted((i for group in passes["cuda"][1]["train"] for i in group),
+                         key=lambda i: i["length"])[:8]
+    valid_items = [i for group in passes["cuda"][1]["valid"] for i in group]
+    del passes
+    task = in_memory_task(production_config(), train_items, valid_items)
+    state = task.init_state(seed=2718)
+    batch = task.to_device(task.collate(train_items))
+    reset_counts()
+    for _ in range(2):
+        logs = task.train_step(state, batch)
+    launched = read_counts()
+    losses = [r["total_loss"] for r in task.step_records]
+    if not (np.isfinite(losses).all() and launched["depthwise_conv1d"]
+            and launched["flash_attention_fwd_res"]):
+        raise AssertionError(f"train steps on binarized items: losses {losses}, "
+                             f"launches {launched}")
+    result["train_steps"] = {"batch": [int(batch["size"]), int(batch["units"].shape[1])],
+                             "total_loss": losses, "grad_norm": float(logs["grad_norm"]),
+                             "launches": {n: c for n, c in launched.items() if c}}
+    log(f"binarize: {n_items} items card = CPU (pitch within {pitch_diff:.3g} semitone); two "
+        f"train steps on them: {json.dumps(result['train_steps'])}")
+    del task, state, batch
+    torch.cuda.empty_cache()
+    result["binarizer_s"] = time.perf_counter() - t0
+
+    # 3. ContentVec at full width
+    t0 = time.perf_counter()
+    encoder = ContentVecEncoder(None, device="cuda", seed=31)
+    cpu_encoder = ContentVecEncoder(None, device="cpu", seed=31)
+    worst, masked = 0.0, 0.0
+    for wave in sung_songs([5.2, 4.7], seed=700):
+        got, want = encoder(wave, SR), cpu_encoder(wave, SR)
+        worst = max(worst, float((np.abs(got - want) / (5e-5 + 1e-4 * np.abs(want))).max()))
+        w16 = torch.from_numpy(resample(wave, SR, 16000)[None]).cuda()
+        with torch.no_grad():
+            unpadded = encoder.model(w16)[0].cpu().numpy()
+        masked = max(masked, float((np.abs(got - unpadded) / (5e-5 + 1e-4 * np.abs(unpadded)))
+                                   .max()))
+    result["contentvec"] = {"layers": len(encoder.model.layers), "frames": int(got.shape[0]),
+                            "card_vs_cpu_over_tol": worst, "padded_vs_unpadded_over_tol": masked,
+                            "s": time.perf_counter() - t0}
+    log(f"binarize: ContentVec full width {json.dumps(result['contentvec'])}")
+    if worst > 1 or masked > 1:
+        raise AssertionError(f"ContentVec on the card: {result['contentvec']}")
+    del encoder, cpu_encoder
+    torch.cuda.empty_cache()
+    return result, launched
+
+
 def max_sm_clock_mhz() -> float:
     """The card's maximum SM clock, as nvidia-smi reports it."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -2719,6 +2986,8 @@ def main() -> int:
         launches["lightning"] = results["lightning"]["launches"]
         results["surfaces"], surface_counts = phase("surfaces", surfaces, torch, work, setup)
         launches.update(surface_counts)
+        results["binarize"], launches["binarize_train"] = phase("binarize", binarize_check,
+                                                                torch, work)
         # after every profiled replay: with these 66 graphs captured earlier
         # in the process, torch.profiler has missed a kernel record of a replay
         model = work / "default-bf16" / "model.pt"

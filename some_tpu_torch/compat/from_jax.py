@@ -20,6 +20,9 @@ nothing here imports JAX. :func:`optax_state_to_torch` carries the optax
 optimizer state of a JAX training checkpoint into the torch optimizer, so a
 JAX run resumes in the port. The native SOME-TPU checkpoint is msgpack, read
 with ``msgpack`` imported inside :func:`read_native_checkpoint` only.
+:func:`rmvpe_variables_to_state_dict` and
+:func:`contentvec_params_to_state_dict` carry the JAX package's RMVPE and
+ContentVec trees into ``nn/rmvpe.py`` and ``nn/contentvec.py``.
 """
 from __future__ import annotations
 
@@ -210,3 +213,82 @@ def optax_state_to_torch(opt_state: dict, model: nn.Module,
         accumulator = {"mini_step": int(np.asarray(multi["mini_step"])),
                        "grads": jax_params_to_state_dict(multi["acc_grads"])}
     return sd, accumulator
+
+
+def rmvpe_variables_to_state_dict(variables: dict, en_de_layers: int = 5,
+                                  inter_layers: int = 4,
+                                  n_blocks: int = 4) -> Dict[str, torch.Tensor]:
+    """The JAX package's RMVPE variables (``params`` + ``batch_stats``) ->
+    the port's ``E2E0`` state dict, under the reference's key names: the
+    inverse of ``some_tpu.nn.rmvpe.convert_rmvpe_state_dict``. Conv kernels
+    ``[kh, kw, in, out]`` -> ``[out, in, kh, kw]``; the decoder's
+    ``up_kernel``, which JAX keeps flipped as ``[kh, kw, in, out]``, is
+    flipped back into ConvTranspose2d's ``[in, out, kh, kw]``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, np.ndarray] = {}
+
+    def conv(kernel):
+        return np.transpose(np.asarray(kernel), (3, 2, 0, 1))
+
+    def bn(prefix, p, s):
+        out.update({f"{prefix}.weight": p["scale"], f"{prefix}.bias": p["bias"],
+                    f"{prefix}.running_mean": s["mean"], f"{prefix}.running_var": s["var"]})
+
+    def block(prefix, p, s):
+        out[f"{prefix}.conv.0.weight"] = conv(p["conv1"]["kernel"])
+        bn(f"{prefix}.conv.1", p["bn1"], s["bn1"])
+        out[f"{prefix}.conv.3.weight"] = conv(p["conv2"]["kernel"])
+        bn(f"{prefix}.conv.4", p["bn2"], s["bn2"])
+        if "shortcut" in p:
+            out[f"{prefix}.shortcut.weight"] = conv(p["shortcut"]["kernel"])
+            out[f"{prefix}.shortcut.bias"] = p["shortcut"]["bias"]
+
+    unet, unet_stats = params["unet"], stats["unet"]
+    bn("unet.encoder.bn", unet["in_bn"], unet_stats["in_bn"])
+    for src, dst, count in (("enc", "encoder", en_de_layers),
+                            ("inter", "intermediate", inter_layers)):
+        for layer in range(count):
+            for b in range(n_blocks):
+                block(f"unet.{dst}.layers.{layer}.conv.{b}", unet[f"{src}_{layer}"][f"block_{b}"],
+                      unet_stats[f"{src}_{layer}"][f"block_{b}"])
+    for layer in range(en_de_layers):
+        p, s = unet[f"dec_{layer}"], unet_stats[f"dec_{layer}"]
+        prefix = f"unet.decoder.layers.{layer}"
+        out[f"{prefix}.conv1.0.weight"] = np.transpose(
+            np.asarray(p["up_kernel"])[::-1, ::-1], (2, 3, 0, 1))
+        bn(f"{prefix}.conv1.1", p["up_bn"], s["up_bn"])
+        for b in range(n_blocks):
+            block(f"{prefix}.conv2.{b}", p[f"block_{b}"], s[f"block_{b}"])
+    out["cnn.weight"] = conv(params["head_conv"]["kernel"])
+    out["cnn.bias"] = params["head_conv"]["bias"]
+    gru = params["gru"]
+    for direction, suffix in (("fw", ""), ("bw", "_reverse")):
+        for leaf in ("w_ih", "w_hh", "b_ih", "b_hh"):
+            name = ("weight" if leaf[0] == "w" else "bias") + leaf[1:]
+            out[f"fc.0.gru.{name}_l0{suffix}"] = gru[f"{leaf}_{direction}"]
+    out["fc.1.weight"] = np.asarray(params["fc"]["kernel"]).T
+    out["fc.1.bias"] = params["fc"]["bias"]
+    return {k: torch.tensor(np.ascontiguousarray(v, dtype=np.float32)) for k, v in out.items()}
+
+
+def contentvec_params_to_state_dict(params: dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's HubertEncoder ``params`` -> the port's
+    ``HubertEncoder`` state dict: conv kernels ``[k, in, out]`` and Dense
+    kernels ``[in, out]`` transposed, ``scale`` -> ``weight``,
+    ``layer_{i}`` -> ``layers.{i}``."""
+    out = {}
+    for path, leaf in _flatten(params).items():
+        if path == ("pos_conv_kernel",):
+            out["pos_conv.weight"] = leaf.T
+            continue
+        if path == ("pos_conv_bias",):
+            out["pos_conv.bias"] = leaf
+            continue
+        names = list(path)
+        if names[0].startswith("layer_"):
+            names[0:1] = ["layers", names[0][len("layer_"):]]
+        if names[0] == "feature_extractor" and names[1].startswith("conv_"):
+            names[1:2] = ["conv_layers", names[1][len("conv_"):]]
+        names[-1] = _PARAM_LEAVES[names[-1]]
+        out[".".join(names)] = leaf.T if path[-1] == "kernel" else leaf
+    return {k: torch.tensor(np.ascontiguousarray(v, dtype=np.float32)) for k, v in out.items()}

@@ -6,12 +6,17 @@ spectrum over the mel filterbank's support (the bins outside it carry zero
 weight) -> mel matmul -> log(clamp). Two spectrum methods, as in JAX:
 
 * ``rfft`` (the default): ``torch.fft.rfft`` of the windowed frames;
-* ``dft``: the windowed DFT as two real f32 matmuls over the filterbank's
-  support, the window folded into the cos and sin matrices (built in f64,
-  stored in f32), then ``sqrt(re^2 + im^2)``. Direct summation loses about
-  1e-2 of log-mel accuracy to cancellation at quiet bins (the JAX
-  docstring's figure), so the products run in full f32, TF32 off: JAX's
-  ``Precision.HIGHEST``.
+* ``dft``: the windowed DFT as two real matmuls over the filterbank's
+  support, the window folded into the cos and sin matrices (built in f64),
+  then ``sqrt(re^2 + im^2)``. Direct summation in f32 loses the quiet bins
+  to cancellation: on the CPU the products run in full f32, TF32 off (JAX's
+  ``Precision.HIGHEST``), about 1e-2 of log-mel from rfft there (the JAX
+  docstring's figure). On the card the f32 products are no less accurate
+  than the CPU's against their scale (sum |frame x matrix|), yet their
+  errors put the quietest bins several times farther from an f64 log-mel
+  than the CPU's do; so there the matrices stay in f64 and the products
+  run in f64, which the H100 takes in about the f32 products' time
+  (``chip_smoke.py``'s ``dft_products``; PERF.md).
 
 The JAX package computes both outside Pallas (an FFT, XLA einsums), so
 ``torch.fft.rfft`` and plain matmuls are their counterparts.
@@ -56,10 +61,12 @@ class LogMelSpec:
             n = np.arange(self.n_fft)[:, None]
             k = np.arange(self._k_lo, self._k_hi)[None, :]
             angle = 2.0 * np.pi * n * k / self.n_fft
-            # the window folded in: frames @ dft_cos == rfft(frames * window).real
-            self.dft_cos = torch.tensor((np.cos(angle) * window[:, None]).astype(np.float32),
+            # the window folded in: frames @ dft_cos == rfft(frames * window).real;
+            # f64 products on the card, f32 elsewhere (the module docstring)
+            dtype = torch.float64 if torch.device(device).type == "cuda" else torch.float32
+            self.dft_cos = torch.tensor(np.cos(angle) * window[:, None], dtype=dtype,
                                         device=device)
-            self.dft_sin = torch.tensor((-np.sin(angle) * window[:, None]).astype(np.float32),
+            self.dft_sin = torch.tensor(-np.sin(angle) * window[:, None], dtype=dtype,
                                         device=device)
 
     def num_frames(self, n_samples: int) -> int:
@@ -74,10 +81,11 @@ class LogMelSpec:
             audio.float(), (self.win_length // 2, (self.win_length + 1) // 2))
         frames = audio.unfold(-1, self.n_fft, self.hop_length)  # [B, F, n_fft]
         if self.method == "dft":
-            with _full_f32_matmul():
+            frames = frames.to(self.dft_cos.dtype)
+            with full_f32():
                 re = torch.matmul(frames, self.dft_cos)
                 im = torch.matmul(frames, self.dft_sin)
-            magnitude = torch.sqrt(re * re + im * im)
+            magnitude = torch.sqrt(re * re + im * im).float()
         else:
             spec = torch.fft.rfft(frames * self.window, dim=-1)
             magnitude = spec[..., self._k_lo:self._k_hi].abs()
@@ -87,11 +95,13 @@ class LogMelSpec:
 
 
 @contextlib.contextmanager
-def _full_f32_matmul():
-    """f32 matmuls without TF32 inside the block, whatever the process set."""
-    saved = torch.backends.cuda.matmul.allow_tf32
+def full_f32():
+    """f32 matmuls and cuDNN convolutions and RNNs without TF32 inside the
+    block, whatever the process set."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
