@@ -40,8 +40,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      bf16, whose graphs hold no K3; notes also against the unquantized
      engine; resident weight bytes); ``mel_method: dft`` (its log-mel
      against rfft on the card, and at every bin against an f64 log-mel no
-     farther than the CPU's dft; the two products on the card and on the
-     CPU in f32 and f64, with their times; notes, the mels' device time);
+     farther than the CPU's dft; the spectrum's times with its products in
+     f32 and in f64, beside cuFFT's; notes, the mels' device time);
      the engine's
      oversize split (frame buckets cut at 256) graph vs eager; the discrete
      model (configs/discrete.yaml, 129 classes) through the infer CLI and
@@ -2053,95 +2053,47 @@ def f64_log_mel(wave: np.ndarray, config: dict) -> np.ndarray:
     return np.log(np.maximum(magnitude @ basis.T, 1e-5))
 
 
-def dft_products(torch, wave: np.ndarray, config: dict) -> dict:
-    """Where the dft log-mel loses its quiet bins: the two products
-    (frames @ dft_cos, frames @ dft_sin) of the same f32 operands on the card
-    and on the CPU, in f32 and in f64, each against the f64 product of those
-    operands (|d| over the product's scale, sum |frame x matrix|); then the
-    log-mel of three ways of taking them on the card (f32 as JAX's HIGHEST
-    einsum; f32 with the matrices split into f32 hi + lo; f64 products of
-    f64 matrices) beside cuFFT's, each against the f64 log-mel at every bin,
-    and the products' times on the card."""
-    from some_tpu_torch.audio.mel import hann_window
+def dft_spectrum_ms(torch, wave: np.ndarray, config: dict) -> dict:
+    """The dft spectrum's ms on the card on [rows, samples] audio: its two
+    products (frames @ dft_cos, frames @ dft_sin) in f32, as before the
+    repair, and in f64, as ``LogMelSpec`` takes them there now, beside
+    cuFFT's rfft of the same frames."""
     from some_tpu_torch.ops.melspec import LogMelSpec
 
     mel = LogMelSpec(n_mels=config["units_dim"], sample_rate=config["audio_sample_rate"],
                      win_length=config["win_size"], hop_length=config["hop_size"],
-                     fmin=config["fmin"], fmax=config["fmax"], method="dft", device="cpu")
+                     fmin=config["fmin"], fmax=config["fmax"], method="dft", device="cuda")
     win, hop = config["win_size"], config["hop_size"]
-    x = np.pad(wave, ((0, 0), (win // 2, (win + 1) // 2)))
-    frames = np.ascontiguousarray(
-        np.lib.stride_tricks.sliding_window_view(x, win, axis=-1)[:, ::hop]).reshape(-1, win)
-    cos32, sin32 = mel.dft_cos.numpy(), mel.dft_sin.numpy()
-    f_cpu, f_gpu = torch.from_numpy(frames), torch.from_numpy(frames).cuda()
-    err = {}
-    for name, m32 in (("cos", cos32), ("sin", sin32)):
-        want = frames.astype(np.float64) @ m32.astype(np.float64)
-        scale = np.abs(frames).astype(np.float64) @ np.abs(m32).astype(np.float64)
-        m_cpu, m_gpu = torch.from_numpy(m32), torch.from_numpy(m32).cuda()
-        for tag, got in (("card_f32", (f_gpu @ m_gpu).cpu().numpy()),
-                         ("cpu_f32", (f_cpu @ m_cpu).numpy()),
-                         ("card_f64", (f_gpu.double() @ m_gpu.double()).cpu().numpy()),
-                         ("cpu_f64", (f_cpu.double() @ m_cpu.double()).numpy())):
-            d = np.abs(got.astype(np.float64) - want) / np.maximum(scale, 1e-30)
-            err[f"{name}_{tag}"] = {"max": float(d.max()), "mean": float(d.mean())}
+    audio = torch.nn.functional.pad(torch.from_numpy(wave).cuda(), (win // 2, (win + 1) // 2))
+    frames = audio.unfold(-1, win, hop).contiguous()
+    f64 = frames.double()
+    cos32, sin32 = mel.dft_cos.float(), mel.dft_sin.float()
 
-    # the spectra on the card: the candidates and cuFFT, as log-mel against f64
-    n = np.arange(win)[:, None]
-    k = np.arange(mel._k_lo, mel._k_hi)[None, :]
-    window = hann_window(win)
-    cos64 = torch.tensor(np.cos(2 * np.pi * n * k / win) * window[:, None], device="cuda")
-    sin64 = torch.tensor(-np.sin(2 * np.pi * n * k / win) * window[:, None], device="cuda")
-    cos_hi, sin_hi = cos64.float(), sin64.float()
-    cos_lo, sin_lo = (cos64 - cos_hi.double()).float(), (sin64 - sin_hi.double()).float()
-    basis = mel.basis_trim.cuda()
-    rfft_mel = LogMelSpec(n_mels=config["units_dim"], sample_rate=config["audio_sample_rate"],
-                          win_length=win, hop_length=hop, fmin=config["fmin"],
-                          fmax=config["fmax"], device="cuda")
-
-    def spectra(kind):
-        f = f_gpu
-        if kind == "f32":
-            re, im = f @ cos_hi, f @ sin_hi
-        elif kind == "f32_hi_lo":
-            re, im = f @ cos_hi + f @ cos_lo, f @ sin_hi + f @ sin_lo
-        else:
-            f = f.double()
-            re, im = (f @ cos64).float(), (f @ sin64).float()
+    def f32_products():
+        re, im = frames @ cos32, frames @ sin32
         return torch.sqrt(re * re + im * im)
 
+    def f64_products():
+        re, im = f64 @ mel.dft_cos, f64 @ mel.dft_sin
+        return torch.sqrt(re * re + im * im).float()
+
     def cufft():
-        spec = torch.fft.rfft(f_gpu * rfft_mel.window, dim=-1)
+        spec = torch.fft.rfft(frames * mel.window, dim=-1)
         return spec[..., mel._k_lo:mel._k_hi].abs()
 
-    ref = f64_log_mel(wave, config).reshape(-1, config["units_dim"])
-    logmel = {}
-    ms = {}
-    for kind, fn in (("f32", lambda: spectra("f32")), ("f32_hi_lo", lambda: spectra("f32_hi_lo")),
-                     ("f64", lambda: spectra("f64")), ("cufft", cufft)):
-        got = torch.log(torch.clamp(fn() @ basis.T, min=1e-5)).cpu().numpy()
-        quiet = ref < np.log(1e-3)
-        d = np.abs(got - ref)
-        logmel[kind] = {"all": float(d.max()), "quiet": float(d[quiet].max()),
-                        "loud": float(d[~quiet].max())}
-        ms[kind] = median_ms(torch, fn)
-    cpu = mel(torch.from_numpy(wave)).numpy().reshape(-1, config["units_dim"])
-    logmel["cpu_f32"] = {"all": float(np.abs(cpu - ref).max())}
-    out = {"frames": list(frames.shape), "products_rel_err": err, "logmel_vs_f64": logmel,
-           "spectrum_ms": ms}
-    log("dft products: " + json.dumps(out))
-    return out
+    return {name: median_ms(torch, fn) for name, fn in
+            (("f32", f32_products), ("f64", f64_products), ("cufft", cufft))}
 
 
 def mel_check(torch, setup: dict, workdir: pathlib.Path):
     """``mel_method: dft`` in one default bf16 engine on the four songs
     (graph dispatch after prewarm), its log-mel against the rfft one on the
     card, on every group's real frames: at most 1e-2 apart wherever the mel
-    is at least 1e-3 (100 x the clamp), the JAX docstring's figure; below
-    that the direct f32 sum loses the quiet bins to cancellation (on the
-    CPU JAX's own dft and rfft are 0.027 apart on these songs), so there
-    both are held against an f64 log-mel and their largest errors are
-    recorded. Then note F1 against the rfft engine's (the default bf16 main
+    is at least 1e-3 (100 x the clamp), the JAX docstring's figure; and at
+    every bin no farther from an f64 log-mel than the port's CPU dft (f32
+    products, which lose the quiet bins to cancellation: JAX's own dft and
+    rfft are 0.027 apart there on these songs). Then the spectrum's times
+    (``dft_spectrum_ms``), note F1 against the rfft engine's (the default bf16 main
     path's MIDI files), the warm RTF, the two mels' device time on the
     largest group (torch.profiler), and the pass's device ms by group."""
     from some_tpu_torch.audio.wire import decode_wire_device
@@ -2199,7 +2151,7 @@ def mel_check(torch, setup: dict, workdir: pathlib.Path):
             err[key] = max(err[key], float(value.max()))
         if largest is None or wave.numel() > largest.numel():
             largest = wave
-    products = dft_products(torch, largest.cpu().numpy(), config)
+    spectrum_ms = dft_spectrum_ms(torch, largest.cpu().numpy(), config)
     mel_ms = {name: {"ms": median_ms(torch, lambda: mel(largest)),
                      "device_ms": device_ms(torch, lambda: mel(largest), calls=10)}
               for name, mel in (("dft", engine.mel), ("rfft", rfft))}
@@ -2211,7 +2163,7 @@ def mel_check(torch, setup: dict, workdir: pathlib.Path):
         f"{prof['device_ms']:.1f}, by group {prof['by_group_ms']}")
     log(f"dft mel at every bin against the f64 log-mel: the card {err['dft_vs_f64']:.3e}, "
         f"the port's CPU dft {err['cpu_dft_vs_f64']:.3e}; the spectrum's ms on the card "
-        f"{json.dumps(products['spectrum_ms'])} (f32: the products before, f64: now)")
+        f"{json.dumps(spectrum_ms)} (f32: the products before, f64: now)")
     if not err["dft_vs_rfft_above_1e-3"] <= 1e-2:
         raise AssertionError(f"dft log-mel differs from rfft: {err}")
     if not err["dft_vs_f64"] <= err["cpu_dft_vs_f64"]:
@@ -2220,7 +2172,8 @@ def mel_check(torch, setup: dict, workdir: pathlib.Path):
     torch.cuda.empty_cache()
     return {"max_abs_logmel": err, "f1_vs_rfft": f1,
             "rtf_warm_median": audio_s / statistics.median(walls), "mel_device_ms": mel_ms,
-            "mel_samples_shape": list(largest.shape), "profile": prof, "dft_products": products}
+            "mel_samples_shape": list(largest.shape), "profile": prof,
+            "dft_spectrum_ms": spectrum_ms}
 
 
 class AttributeDict(dict):
@@ -2810,7 +2763,7 @@ def binarize_check(torch, workdir: pathlib.Path, shortest: float = 5.0, longest:
                                              units_dim=80)
         passes[device] = bench_binarize.timed_pass(config, device, write=False)
     line = bench_binarize.bench_line(passes["cuda"][0], len(seconds), audio_s, "cuda",
-                                     bucket=True, batched_pitch=True, aug_factor=2)
+                                     aug_factor=2)
     log("bench_binarize (the card's pass): " + json.dumps(line))
     pitch_diff, n_items = 0.0, 0
     for prefix in ("valid", "train"):

@@ -21,8 +21,7 @@ splits: ``prepare_items`` and ``process_item``; the coverage summary
 too), and the line says
 ``"hdf5_write": false``.
 
-    python -m some_tpu_torch.bench_binarize [--items 8] [--no-bucket] [--no-batch] \\
-        [--device cpu]
+    python -m some_tpu_torch.bench_binarize [--items 8] [--device cpu]
 
 Prints one JSON line with the card's name, power limit and count. Runs on
 the card unless ``--device cpu``; without a card it raises.
@@ -121,9 +120,9 @@ def _h5py_available() -> bool:
     return True
 
 
-def timed_pass(config: dict, device, bucket: bool = True, batched: bool = True,
-               write: bool | None = None):
-    """One binarize pass with the split timed; returns (the numbers,
+def timed_pass(config: dict, device, write: bool | None = None):
+    """One binarize pass with the split timed, on the path the binarizer
+    runs (bucketed, batched RMVPE forwards); returns (the numbers,
     {prefix: [item groups]}). ``write`` None: write the HDF5 files where
     h5py imports."""
     from some_tpu_torch.nn.rmvpe import RMVPE
@@ -132,7 +131,6 @@ def timed_pass(config: dict, device, bucket: bool = True, batched: bool = True,
     device = torch.device(device)
     write = _h5py_available() if write is None else write
     rmvpe = RMVPE.cached(config["pe_ckpt"], device=device)
-    rmvpe.bucket = bucket
     acc = {"units": 0.0, "rmvpe": 0.0, "fwd": 0.0}
     shapes, forwards = set(), []
 
@@ -159,14 +157,12 @@ def timed_pass(config: dict, device, bucket: bool = True, batched: bool = True,
 
     binarizer = MIDIExtractionBinarizer(dict(config), device=str(device))
     binarizer.compute_units = timed(binarizer.compute_units, "units")
-    if not batched:
-        binarizer.prepare_items = None  # the per-item path
     rmvpe._forward = counted_forward
     rmvpe.get_pitch = timed(rmvpe.get_pitch, "rmvpe")
     rmvpe.f0_batch = timed(rmvpe.f0_batch, "rmvpe")
     to_grid = RMVPE.__dict__["f0_to_grid"]
-    if batched:  # the grid resample runs outside f0_batch, from the cache
-        RMVPE.f0_to_grid = staticmethod(timed(to_grid.__func__, "rmvpe"))
+    # the grid resample runs outside f0_batch, from the cache
+    RMVPE.f0_to_grid = staticmethod(timed(to_grid.__func__, "rmvpe"))
     groups = {}
     try:
         t0 = time.perf_counter()
@@ -192,10 +188,9 @@ def timed_pass(config: dict, device, bucket: bool = True, batched: bool = True,
 
 
 def measure(device=None, items: int = 8, min_s: float = 4.0, max_s: float = 30.0,
-            aug: int = 1, bucket: bool = True, batched: bool = True, passes: int = 1,
-            seed: int = 42) -> dict:
-    """The bench's line (the first pass; with ``passes`` > 1 also the last,
-    the steady state with every shape met)."""
+            aug: int = 1, seed: int = 42) -> dict:
+    """The bench's line of one pass in a fresh process's state (each
+    RMVPE shape met for the first time)."""
     from some_tpu_torch.inference.base_infer import resolve_device
 
     device = resolve_device(device)
@@ -204,15 +199,9 @@ def measure(device=None, items: int = 8, min_s: float = 4.0, max_s: float = 30.0
         seconds = list(np.round(np.linspace(min_s, max_s, items), 1))
         audio_s = write_song_dataset(root / "raw", np.random.default_rng(seed), seconds)
         ckpt = save_random_rmvpe(root / "model.pt", seed)
-        runs = []
-        for i in range(max(1, passes)):
-            config = bench_config(root / "raw", root / f"binary{i}", ckpt, aug)
-            runs.append(timed_pass(config, device, bucket, batched)[0])
-    line = bench_line(runs[0], items, audio_s, device, bucket=bucket, batched_pitch=batched,
-                      aug_factor=aug)
-    if len(runs) > 1:
-        line["steady"] = dict(runs[-1], rtf=audio_s / runs[-1]["wall_s"])
-    return line
+        config = bench_config(root / "raw", root / "binary", ckpt, aug)
+        stats = timed_pass(config, device)[0]
+    return bench_line(stats, items, audio_s, device, aug_factor=aug)
 
 
 def bench_line(stats: dict, items: int, audio_s: float, device, **flags) -> dict:
@@ -232,19 +221,12 @@ def main(argv=None) -> None:
     ap.add_argument("--items", type=int, default=8)
     ap.add_argument("--min-s", type=float, default=4.0)
     ap.add_argument("--max-s", type=float, default=30.0)
-    ap.add_argument("--no-bucket", action="store_true",
-                    help="exact pad-32 shapes instead of RMVPE's frame buckets")
-    ap.add_argument("--no-batch", action="store_true",
-                    help="per-item RMVPE forwards instead of the packed prepare pass")
     ap.add_argument("--aug", type=int, default=1, help="key_shift_factor")
-    ap.add_argument("--passes", type=int, default=1,
-                    help="passes in one process; the last is the steady state")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu for a test)")
     args = ap.parse_args(argv)
     line = measure(args.device, items=args.items, min_s=args.min_s, max_s=args.max_s,
-                   aug=args.aug, bucket=not args.no_bucket, batched=not args.no_batch,
-                   passes=args.passes)
+                   aug=args.aug)
     print(json.dumps(line), flush=True)
 
 

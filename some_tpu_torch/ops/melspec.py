@@ -16,7 +16,7 @@ weight) -> mel matmul -> log(clamp). Two spectrum methods, as in JAX:
   errors put the quietest bins several times farther from an f64 log-mel
   than the CPU's do; so there the matrices stay in f64 and the products
   run in f64, which the H100 takes in about the f32 products' time
-  (``chip_smoke.py``'s ``dft_products``; PERF.md).
+  (PERF.md; ``chip_smoke.py``'s ``mel_check`` holds it at every bin).
 
 The JAX package computes both outside Pallas (an FFT, XLA einsums), so
 ``torch.fft.rfft`` and plain matmuls are their counterparts.
@@ -82,9 +82,8 @@ class LogMelSpec:
         frames = audio.unfold(-1, self.n_fft, self.hop_length)  # [B, F, n_fft]
         if self.method == "dft":
             frames = frames.to(self.dft_cos.dtype)
-            with full_f32():
-                re = torch.matmul(frames, self.dft_cos)
-                im = torch.matmul(frames, self.dft_sin)
+            re = torch.matmul(frames, self.dft_cos)
+            im = torch.matmul(frames, self.dft_sin)
             magnitude = torch.sqrt(re * re + im * im).float()
         else:
             spec = torch.fft.rfft(frames * self.window, dim=-1)
