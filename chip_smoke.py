@@ -34,6 +34,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
      counts per step and per validation forward, for the default and the
      opt-in configuration, each followed by inference from its checkpoint;
      a kernel-vs-plain train step for each; an f32 loss that falls;
+  5b. training, the rest (``train_rest``), in default bf16 from launch
+     counts at 0: from the default train phase's checkpoint (finetuning),
+     ``accumulate_grad_batches: 2`` with ``in_proj_midi`` frozen, 6
+     micro-steps straight through twice and 3 + an interrupt + a resume to
+     6 (no farther from a straight run than the two straight runs are from
+     each other; the frozen weights bit for bit); one validation forward's
+     outputs decoded on the card and on the CPU (integers equal, values to
+     f32 rounding); finetuning from a reference Lightning file with
+     ``bound_head`` ignored (every other leaf the file's) and two steps;
+     every remat policy (one forward and backward at 8 x 2048 each: loss
+     and every gradient equal to ``nothing``'s bit for bit, K1/K2
+     launches, peak memory, step wall, device time), and
+     ``save_attn_conv`` with splash; the profile window (a trace holding K1
+     and K2 records, the step count after it); two steps in a one-process
+     NCCL group equal to two without one, bit for bit;
   6. what users bring: ``quantize: int8`` (one cuBLASLt int8 product held
      bit for bit against int64 and timed against bf16; the infer path as in
      4 for the default configuration in bf16 and f32 and the opt-in one in
@@ -73,8 +88,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the default dispatch, eager dispatch and capture on first use;
   8. the port's bench (``some_tpu_torch.bench``), shortened.
 Each phase's seconds are printed, and the total.
-Prints the bench's JSON line, one JSON line of kernel measurements, one of
-path results and, last, ``{"ok": true, "device": {...}}``. Imports nothing
+Prints the train_rest phase's JSON line, the bench's, one JSON line of
+kernel measurements, one of path results and, last, ``{"ok": true,
+"device": {...}}``. Imports nothing
 of JAX.
 
 Every kernel row's ``ms`` and ``library_ms`` is one call's CUDA-event time,
@@ -1915,6 +1931,444 @@ def overfit_f32(torch, n_steps=30):
     return {"losses": losses, "first5_mean": first, "last5_mean": last}
 
 
+# ---- training, the rest: accumulation, resume and frozen parameters on the
+# card, finetuning, every remat policy, the profile window, world size 1 ----
+
+def train_step_launches(config, names) -> dict:
+    """The hand-written kernels' launches in one train step of ``config``
+    (any remat policy): K1's forward and K2's (K4's) forward with residuals
+    once a block and again in each remat'd block's recompute, each backward
+    kernel once a block."""
+    lay = config["midi_extractor_args"]["lay"]
+    blocks, remat_blocks = 2 * lay + 2, (2 * lay if config.get("use_remat", True) else 0)
+    attn = "splash_attention" if config.get("attention_impl") == "splash" else "flash_attention"
+    per_step = {"depthwise_conv1d": blocks + remat_blocks, "depthwise_conv1d_dx": blocks,
+                "depthwise_conv1d_dw": blocks, f"{attn}_fwd_res": blocks + remat_blocks,
+                f"{attn}_bwd_dkv": blocks, f"{attn}_bwd_dq": blocks}
+    return {name: per_step.get(name, 0) for name in names}
+
+
+def remat_policies(torch, rows=8, frames=2048):
+    """One forward and backward of each remat policy from one state and one
+    batch (``rows`` x ``frames``, bf16, dropout 0.1 keyed to (seed, step)):
+    the four policies in the default configuration, ``nothing`` and
+    ``save_attn_conv`` in the opt-in one. A policy changes what the forward
+    keeps, not the arithmetic, so the loss and every gradient equal
+    ``nothing``'s bit for bit (the recompute draws the same dropout masks
+    and leaves the BatchNorm statistics alone). The K1 and K2 (K4) launches
+    of the step are held to PERF.md's counts: every policy runs the kernels'
+    forwards again in the recompute (none keeps a hand-written kernel's
+    output, and the BatchNorm after K1 and K2's own backward need them), so
+    K1 34 / dx 18 / dw 18 and K2 (K4) fwd+res 34 / dk,dv 18 / dq 18, as
+    under ``nothing``. Per policy: peak memory (max_memory_allocated) and
+    launches of the first run; the synchronized wall time and the device
+    time (the kernels' durations) of a second, under torch.profiler with
+    the CUDA activity alone (the CPU activity's bookkeeping of every op
+    would take seconds a step and enter the wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from some_tpu_torch.nn.conformer import REMAT_POLICIES
+    from some_tpu_torch.training.base_task import TrainState
+
+    items = synthetic_items(12, rows, 80, lo=frames - 100, hi=frames)
+    cases = [(False, p) for p in REMAT_POLICIES] + [(True, "nothing"), (True, "save_attn_conv")]
+    result, start, refs = {}, {}, {}
+    for opt_in, policy in cases:
+        tag = f"{'opt_in' if opt_in else 'default'}/{policy}"
+        t_case = time.perf_counter()
+        config = production_config(remat_policy=policy, **(OPT_IN if opt_in else {}))
+        task = in_memory_task(config, items, items)
+        if opt_in not in start:  # one start per configuration: the first policy's
+            state = task.init_state(seed=11)
+            start[opt_in] = {k: v.clone() for k, v in state.model.state_dict().items()}
+        else:  # the same weights without drawing them again
+            state = TrainState(task.build_model().to(task.device), None)
+            state.model.load_state_dict(start[opt_in])
+        batch = task.collate(items)
+        if tuple(batch["units"].shape[:2]) != (rows, frames):
+            raise AssertionError(f"remat batch {batch['units'].shape}, want {rows} x {frames}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = read_counts()
+        logs, grads = step_grads(torch, task, state, batch)
+        torch.cuda.synchronize()
+        after = read_counts()
+        counts = {n: after[n] - before[n] for n in after}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step_grads(torch, task, state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        want = train_step_launches(config, counts)
+        if counts != want:
+            raise AssertionError(f"remat {tag}: launched {counts}, want {want}")
+        entry = {"loss": logs["total_loss"], "grad_norm": logs["grad_norm"],
+                 "peak_gib": peak, "step_wall_ms": wall_ms, "device_ms": device_ms,
+                 "launches": {n: c for n, c in counts.items() if c}}
+        if policy == "nothing":
+            refs[opt_in] = (logs, grads)
+        else:
+            ref_logs, ref_grads = refs[opt_in]
+            if logs["total_loss"] != ref_logs["total_loss"]:
+                raise AssertionError(f"remat {tag}: loss {logs['total_loss']!r}, nothing's "
+                                     f"{ref_logs['total_loss']!r}")
+            differ = [n for n, g in ref_grads.items() if not torch.equal(grads[n], g)]
+            if differ:
+                worst = max(float((grads[n].float() - ref_grads[n].float()).abs().max())
+                            for n in differ)
+                raise AssertionError(f"remat {tag}: {len(differ)} of {len(grads)} gradients "
+                                     f"differ from nothing's (max |d| {worst:.3e}), e.g. "
+                                     f"{differ[:5]}")
+            entry.update(grads_bitwise_equal=len(grads), grads=len(grads))
+        entry["s"] = time.perf_counter() - t_case
+        log(f"remat {tag}, {rows} x {frames} bf16: " + json.dumps(entry))
+        result[tag] = entry
+        del task, state, grads
+        torch.cuda.empty_cache()
+    del refs
+    torch.cuda.empty_cache()
+    return result
+
+
+def state_diff(torch, got: dict, want: dict) -> dict:
+    """How far two state_dicts are apart: max |d| and the count of tensors
+    that differ."""
+    diffs = [float((got[k].float() - v.float()).abs().max()) for k, v in want.items()]
+    return {"max_abs": max(diffs), "tensors_differing": sum(d > 0 for d in diffs),
+            "tensors": len(diffs)}
+
+
+def interrupt_at(task, call: int):
+    """Make ``task.train_step`` raise KeyboardInterrupt at its ``call``-th
+    call, before it applies anything."""
+    inner, calls = task.train_step, [0]
+
+    def train_step(state, batch):
+        calls[0] += 1
+        if calls[0] == call:
+            raise KeyboardInterrupt("chip_smoke: interrupted")
+        return inner(state, batch)
+
+    task.train_step = train_step
+
+
+def accumulate_resume_frozen(torch, workdir: pathlib.Path, source: pathlib.Path, items):
+    """Queue 3's open item on the card. From the default train phase's
+    checkpoint (``finetune_ckpt_path``), with ``accumulate_grad_batches: 2``
+    and ``model.backbone.in_proj_midi`` frozen: 6 micro-steps (3 updates)
+    straight through, twice; then 3, an interrupt (the accumulator half
+    full), and a resume to 6. The resumed run is no farther from the first
+    straight run than the second is (bit for bit where those two are);
+    the frozen projection keeps the file's values bit for bit in every run.
+    Only the interrupt's checkpoint is written (the resume reads it); the
+    runs' final weights are taken from memory."""
+    from some_tpu_torch.training.trainer import Trainer
+    from some_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    weights = load_checkpoint(source)["state_dict"]  # the weights alone: a third of the file
+    source = save_checkpoint(workdir / "accumulate-source.ckpt", weights)
+    frozen = {k: v for k, v in weights.items() if k.startswith("backbone.in_proj_midi.")}
+    del weights
+    config = production_config(accumulate_grad_batches=2, freezing_enabled=True,
+                               frozen_params=["model.backbone.in_proj_midi"],
+                               finetune_enabled=True, finetune_ckpt_path=str(source),
+                               val_check_interval=1000, num_sanity_val_steps=0,
+                               log_interval=1000)
+    def no_final_checkpoint(trainer):
+        trainer._save_ckpt = lambda *args: None
+        return trainer
+
+    finals = {}
+    for run in ("straight_a", "straight_b", "resumed"):
+        work = workdir / f"accumulate-{run}"
+        task = in_memory_task(config, items, items)
+        if run == "resumed":
+            interrupt_at(task, 4)
+            try:
+                Trainer(task, work).fit(max_steps=3)  # writes the interrupt's checkpoint
+                raise AssertionError("the interrupt did not reach the trainer")
+            except KeyboardInterrupt:
+                pass
+            meta = load_checkpoint(work / "model_ckpt_steps_1.ckpt")
+            if meta["meta"]["micro_step"] != 3 or meta["accumulator"]["mini_step"] != 1:
+                raise AssertionError(f"interrupt checkpoint {meta['meta']}, accumulator "
+                                     f"{meta['accumulator'] and meta['accumulator']['mini_step']}")
+            del meta
+            task = in_memory_task(config, items, items)
+        state = no_final_checkpoint(Trainer(task, work)).fit(max_steps=3)
+        if state.step != 6 or state.accumulator is not None:
+            raise AssertionError(f"{run}: micro-step {state.step}, accumulator "
+                                 f"{state.accumulator is not None}")
+        final = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+        for key, value in frozen.items():
+            if not torch.equal(final[key], value):
+                raise AssertionError(f"{run}: the frozen {key} moved")
+        finals[run] = final
+        del task, state
+        torch.cuda.empty_cache()
+    straight = state_diff(torch, finals["straight_b"], finals["straight_a"])
+    resumed = state_diff(torch, finals["resumed"], finals["straight_a"])
+    log(f"accumulate 2 + frozen in_proj_midi, 6 micro-steps from the default checkpoint: two "
+        f"straight runs differ by {straight}; resumed at 3 vs straight: {resumed}")
+    if resumed["max_abs"] > straight["max_abs"]:
+        raise AssertionError(f"the resumed run is farther from a straight run ({resumed}) than "
+                             f"two straight runs are ({straight})")
+    return {"straight_vs_straight": straight, "resumed_vs_straight": resumed,
+            "frozen_bitwise": True}, finals["straight_a"]
+
+
+def validation_card_vs_cpu(torch, weights: dict, valid_items):
+    """One validation forward on the card; the validation outputs (the note
+    decode's ``index_add_`` segment sums, the cumsum and its round, the
+    midi_acc counters) and the losses computed from that forward's outputs
+    on the card and on the CPU. Integer outputs must be equal; note values
+    and losses within f32 rounding (|d| <= 1e-4 + 1e-6 |want| and rel 1e-5)."""
+    config = production_config()
+    task = in_memory_task(config, valid_items, valid_items)
+    state = task.init_state()
+    state.model.load_state_dict(weights)
+    batch = task.collate(valid_items)
+    model = state.model.eval()
+    card = task.to_device(batch)
+    with torch.no_grad():
+        outputs = model(**task.model_inputs(card))
+        got = task.valid_outputs(outputs, card)
+        got_losses = task.compute_losses(outputs, card)
+    cpu_task = in_memory_task(config, valid_items, valid_items, device="cpu")
+    host = cpu_task.to_device(batch)
+    cpu_out = tuple(o.detach().cpu() for o in outputs)
+    want = cpu_task.valid_outputs(cpu_out, host)
+    want_losses = cpu_task.compute_losses(cpu_out, host)
+    report = {"rows": int(batch["size"]), "frames": int(batch["units"].shape[1])}
+    for key in ("midi_acc_correct", "midi_acc_total", "n_notes", "note_dur", "note_rest"):
+        if not torch.equal(got[key].cpu(), want[key]):
+            raise AssertionError(f"validation {key}: card {got[key].cpu()} CPU {want[key]}")
+    report["midi_acc"] = [int(got["midi_acc_correct"]), int(got["midi_acc_total"])]
+    report["notes"] = int(got["n_notes"].sum())
+    for key in ("note_midi", "midi_pred", "probs", "bounds"):
+        g, w = got[key].cpu().float(), want[key].float()
+        finite = torch.isfinite(w)
+        if not torch.equal(finite, torch.isfinite(g)):
+            raise AssertionError(f"validation {key}: infinities differ")
+        d = (g[finite] - w[finite]).abs()
+        report[f"{key}_max_abs"] = float(d.max()) if d.numel() else 0.0
+        if d.numel() and bool((d > 1e-4 + 1e-6 * w[finite].abs()).any()):
+            raise AssertionError(f"validation {key}: card vs CPU max |d| {float(d.max())}")
+    for key, value in want_losses.items():
+        rel = abs(float(got_losses[key]) - float(value)) / abs(float(value))
+        report[f"{key}_rel"] = rel
+        if rel > 1e-5:
+            raise AssertionError(f"validation {key}: card {float(got_losses[key])} CPU "
+                                 f"{float(value)}")
+    log("validation outputs, card vs CPU on one forward's outputs: " + json.dumps(report))
+    del task, state, model, outputs
+    torch.cuda.empty_cache()
+    return report
+
+
+def finetune_from_lightning(torch, workdir: pathlib.Path, items):
+    """Finetune from a reference Lightning ``.ckpt`` at production width
+    (tests/torch_oracle.py's OracleModel, random BatchNorm statistics, as
+    lightning_check makes it) with ``finetune_ignored_params:
+    [model.backbone.bound_head]``: every other leaf equals the file's bit
+    for bit, the head keeps its fresh value; then two steps, with the K1 and
+    K2 launches of a default train step."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_oracle import OracleModel
+
+    from some_tpu_torch.compat.torch_ckpt import reference_state_dict
+    from some_tpu_torch.training.trainer import Trainer
+
+    config = production_config()
+    args = config["midi_extractor_args"]
+    torch.manual_seed(271828)
+    oracle = OracleModel(args["lay"], args["dim"], config["units_dim"], config["midi_num_bins"],
+                         kernel_size=args["kernel_size"], heads=args["attention_heads"],
+                         dim_head=args["attention_heads_dim"])
+    with torch.no_grad():
+        for m in oracle.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                m.running_mean.normal_(0, 0.5)
+                m.running_var.uniform_(0.5, 2.0)
+    payload = {"state_dict": {f"model.{k}": v for k, v in oracle.state_dict().items()},
+               "hyper_parameters": AttributeDict(config), "global_step": 0}
+    path = workdir / "finetune-source.ckpt"
+    torch.save(payload, path)
+    file_sd = reference_state_dict(payload)
+    del oracle, payload
+    config.update(finetune_enabled=True, finetune_ckpt_path=str(path),
+                  finetune_ignored_params=["model.backbone.bound_head"])
+    task = in_memory_task(config, items, items)
+    fresh = {k: v.cpu() for k, v in task.init_state().model.state_dict().items()
+             if k.startswith("backbone.bound_head.")}
+    work = workdir / "finetune"
+    loaded = Trainer(task, work).restore_or_init()
+    got = {k: v.cpu() for k, v in loaded.model.state_dict().items()}
+    for key, value in got.items():
+        want = fresh[key] if key.startswith("backbone.bound_head.") else file_sd[key]
+        if not torch.equal(value, want):
+            raise AssertionError(f"finetune: {key} is not the "
+                                 f"{'fresh' if key in fresh else 'file'} value")
+    del got
+    for i in range(2):
+        task.train_step(loaded, task.collate(items[8 * i: 8 * i + 8]))
+    per_step = [r["launches"] for r in task.step_records]
+    want = train_step_launches(config, per_step[0])
+    if loaded.step != 2 or any(c != want for c in per_step):
+        raise AssertionError(f"finetune steps launched {per_step}, want {want} each")
+    losses = [r["total_loss"] for r in task.step_records]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"finetune losses {losses}")
+    log(f"finetune from a Lightning file ({len(file_sd)} leaves, bound_head ignored): every "
+        f"other leaf equals the file's, the head its fresh value; 2 steps, losses {losses}, "
+        f"launches per step {({n: c for n, c in want.items() if c})}")
+    del task, loaded
+    torch.cuda.empty_cache()
+    return {"leaves": len(file_sd), "losses": losses, "launches_per_step": want}
+
+
+def profile_window(torch, workdir: pathlib.Path, items):
+    """``profile_dir`` with ``log_interval: 2``: 3 micro-steps are asked, so
+    the trainer takes updates 1 and 2, the traced repeat of update 2's batch
+    (counted as a step), and stops: 3 steps, 2 batches consumed (JAX's
+    anchor rule). The trace file holds K1 and K2 kernel records, at least
+    one of each (torch.profiler may drop records)."""
+    from some_tpu_torch.training.trainer import Trainer
+    from some_tpu_torch.utils.checkpoint import load_checkpoint
+
+    profile_dir = workdir / "profile"
+    config = production_config(profile_dir=str(profile_dir), log_interval=2,
+                               val_check_interval=1000, num_sanity_val_steps=0)
+    task = in_memory_task(config, items, items)
+    work = workdir / "profiled"
+    state = Trainer(task, work).fit(max_steps=3)
+    meta = load_checkpoint(work / "model_ckpt_steps_3.ckpt")["meta"]
+    if state.step != 3 or meta["micro_step"] != 3 or meta["epoch_batch"] != 2:
+        raise AssertionError(f"profile window: step {state.step}, checkpoint meta {meta}")
+    traces = sorted(profile_dir.glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"profile window wrote {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    groups = {}
+    for name in kernels:
+        group = next((g for key, g in KERNEL_GROUPS if key in name.lower()), None)
+        if group:
+            groups[group] = groups.get(group, 0) + 1
+    k1 = sum(c for g, c in groups.items() if g.startswith("depthwise"))
+    k2 = sum(c for g, c in groups.items() if g.startswith("flash"))
+    log(f"profile window: {traces[0].name} ({traces[0].stat().st_size} bytes), "
+        f"{len(kernels)} kernel records, hand-written by group {groups}; checkpoint meta "
+        f"{ {k: meta[k] for k in ('micro_step', 'epoch', 'epoch_batch')} }")
+    if not k1 or not k2:
+        raise AssertionError(f"the trace holds no K1 or no K2 record: {groups}")
+    del task, state
+    torch.cuda.empty_cache()
+    return {"trace_bytes": traces[0].stat().st_size, "kernel_records": len(kernels),
+            "hand_written_records": groups, "meta": meta}
+
+
+def world_size_one(torch, items):
+    """Two train steps in a one-process NCCL group joined through the
+    SOME_TPU_COORDINATOR contract (the collectives of several processes:
+    the losses' counts, BatchNorm's sums, the gradients), against the same
+    two steps without a group: losses and every weight bit for bit."""
+    import socket
+
+    from some_tpu_torch.parallel import distributed as dist
+    from some_tpu_torch.training.base_task import TrainState
+
+    config = production_config()
+    runs, backend, start = {}, None, None
+    for grouped in (True, False):
+        if grouped:
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            os.environ.update(SOME_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                              SOME_TPU_NUM_PROCESSES="1", SOME_TPU_PROCESS_ID="0")
+        try:
+            if grouped and not dist.maybe_initialize("cuda"):
+                raise AssertionError("maybe_initialize did not join a group")
+            if grouped:
+                backend = torch.distributed.get_backend()
+            task = in_memory_task(config, items, items)
+            if grouped:
+                state = task.init_state()
+                start = {k: v.clone() for k, v in state.model.state_dict().items()}
+            else:  # the same initial weights without drawing them again
+                model = task.build_model().to(task.device)
+                model.load_state_dict(start)
+                state = TrainState(model, task.make_optimizer(model))
+                del model, start
+            for i in range(2):
+                task.train_step(state, task.collate(items[8 * i: 8 * i + 8]))
+            runs[grouped] = ([r["total_loss"] for r in task.step_records],
+                             {k: v.detach().cpu().clone()
+                              for k, v in state.model.state_dict().items()})
+            del task, state
+        finally:
+            for name in ("SOME_TPU_COORDINATOR", "SOME_TPU_NUM_PROCESSES", "SOME_TPU_PROCESS_ID"):
+                os.environ.pop(name, None)
+            dist.destroy()
+        torch.cuda.empty_cache()
+    (losses_g, sd_g), (losses_p, sd_p) = runs[True], runs[False]
+    diff = state_diff(torch, sd_g, sd_p)
+    log(f"world size 1 over {backend}: losses {losses_g} vs {losses_p} without a group; "
+        f"weights {diff}")
+    if backend != "nccl" or losses_g != losses_p or diff["max_abs"] != 0:
+        raise AssertionError(f"world size 1 ({backend}) differs from no group: {losses_g} vs "
+                             f"{losses_p}, {diff}")
+    return {"backend": backend, "losses": losses_g, "weights": diff}
+
+
+def train_rest(torch, workdir: pathlib.Path):
+    """Training, the rest, at production width in bf16 after the default
+    train phase: (i) accumulation, resume and frozen parameters from that
+    phase's checkpoint, and one validation's outputs on the card against
+    the CPU; (ii) finetuning from a Lightning file; (iii) every remat
+    policy; (iv) the profile window; (v) world size 1 over NCCL. The counts
+    start at 0 with the phase and are read at its end; each check's
+    launches and seconds are its own difference."""
+    items = synthetic_items(7, 24, 80, lo=300, hi=700)  # three batches an epoch, T <= 768
+    valid_items = synthetic_items(8, 8, 80)
+    source = workdir / "train-default" / "model_ckpt_steps_8.ckpt"
+    result, seconds, by_check = {}, {}, {}
+
+    def check(name, fn, *args):
+        before, t0 = read_counts(), time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        after = read_counts()
+        by_check[name] = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+        log(f"train_rest {name}: {seconds[name]:.1f} s, launches {by_check[name]}")
+        return out
+
+    reset_counts()
+    result["accumulate_resume_frozen"], weights = check(
+        "accumulate_resume_frozen", accumulate_resume_frozen, torch, workdir, source, items)
+    result["validation_card_vs_cpu"] = check("validation_card_vs_cpu", validation_card_vs_cpu,
+                                             torch, weights, valid_items)
+    del weights
+    result["finetune_lightning"] = check("finetune_lightning", finetune_from_lightning, torch,
+                                         workdir, items)
+    result["remat"] = check("remat", remat_policies, torch)
+    result["profile_window"] = check("profile_window", profile_window, torch, workdir, items)
+    result["world_size_one"] = check("world_size_one", world_size_one, torch, items)
+    launched = read_counts()
+    for name in ("depthwise_conv1d", "depthwise_conv1d_dx", "depthwise_conv1d_dw",
+                 "flash_attention_fwd_res", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                 "splash_attention_fwd_res", "splash_attention_bwd_dkv",
+                 "splash_attention_bwd_dq"):
+        if not launched[name]:
+            raise AssertionError(f"train_rest never launched {name}: {launched}")
+    result.update(s=seconds, launches_by_check=by_check)
+    return result, launched
+
+
 # ---- serving what users bring: int8, the discrete model, the dft mel,
 # reference Lightning files, the oversize split ----
 
@@ -2922,6 +3376,8 @@ def main() -> int:
                 f"train_{tag}", train_path, torch, work, 8, opt_in)
             results[f"kernel_vs_plain_train_step_{tag}"] = phase(
                 f"kernel_vs_plain_train_step_{tag}", kernel_vs_plain_step, torch, opt_in)
+        results["train_rest"], launches["train_rest"] = phase("train_rest", train_rest, torch,
+                                                              work)
         # int8 serving: the default configuration in bf16 and f32, the opt-in one in bf16
         for opt_in, precisions in ((False, ("bf16", "32-true")), (True, ("bf16",))):
             tag = ("opt_in" if opt_in else "default") + "_int8"
@@ -2986,8 +3442,10 @@ def main() -> int:
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "launches_per_train_step": {
-                    tag: results[f"train_{tag}"]["launches_per_step"][name]
-                    for tag in ("default", "opt_in", "discrete")},
+                    **{tag: results[f"train_{tag}"]["launches_per_step"][name]
+                       for tag in ("default", "opt_in", "discrete")},
+                    **{f"remat_{tag}": policy["launches"].get(name, 0)
+                       for tag, policy in results["train_rest"]["remat"].items()}},
                 "max_abs_err": max(r["max_abs_diff"] for r in rows[name]),
                 "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2999,6 +3457,7 @@ def main() -> int:
                 "shape": head["shape"],
                 "dtype": head["dtype"], "card": card, "shapes": rows[name]}
 
+    print(json.dumps({"train_rest": results["train_rest"], "card": card}), flush=True)
     print(json.dumps(bench_line), flush=True)
     print(json.dumps({"kernels": [entry(*k) for k in kernels]}), flush=True)
     print(json.dumps(dict(results, card=card)), flush=True)

@@ -91,31 +91,39 @@ def load_jax_variables(model: nn.Module, params: dict,
                        f"unmapped {unexpected}")
 
 
+_INVERSE = {"running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var"),
+            "weight_scale": ("qscales", "kernel_scale")}
+
+
+def jax_leaf(key: str, tensor: torch.Tensor) -> Tuple[str, Tuple[str, ...], tuple]:
+    """A port ``state_dict`` entry -> (flax collection, the leaf's path in it,
+    its flax shape): the inverse of :func:`jax_params_to_state_dict`'s rules."""
+    *path, name = key.split(".")
+    shape = tuple(tensor.shape)
+    if name in _INVERSE:
+        collection, leaf = _INVERSE[name]
+    elif name == "bias":
+        collection, leaf = "params", "bias"
+    elif tensor.dim() == 2:
+        collection, leaf = "params", "kernel"
+        if path[-1] != "dw":
+            shape = shape[::-1]
+    else:
+        collection, leaf = "params", "scale"
+    return collection, tuple(path) + (leaf,), shape
+
+
 def jax_variable_shapes(model: nn.Module) -> Dict[str, dict]:
     """The flax variable tree (as shapes) that :func:`jax_params_to_state_dict`
     maps onto ``model`` — the inverse of its rules (with ``qscales`` for a
     quantized model)."""
     trees: Dict[str, dict] = {"params": {}, "batch_stats": {}}
-    inverse = {"running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var"),
-               "weight_scale": ("qscales", "kernel_scale")}
     for key, tensor in model.state_dict().items():
-        *path, name = key.split(".")
-        shape = tuple(tensor.shape)
-        if name in inverse:
-            collection, leaf = inverse[name]
-            trees.setdefault(collection, {})
-        elif name == "bias":
-            collection, leaf = "params", "bias"
-        elif tensor.dim() == 2:
-            collection, leaf = "params", "kernel"
-            if path[-1] != "dw":
-                shape = shape[::-1]
-        else:
-            collection, leaf = "params", "scale"
-        node = trees[collection]
-        for part in path:
+        collection, path, shape = jax_leaf(key, tensor)
+        node = trees.setdefault(collection, {})
+        for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[leaf] = shape
+        node[path[-1]] = shape
     return trees
 
 

@@ -47,20 +47,28 @@ def bucket_batch_size(b: int) -> int:
 def pad_to_bucket(batch: dict, length_grid: int = 128, pad_batch: bool = True,
                   length_keys: tuple = ("units", "pitch", "unit2note"),
                   note_keys: tuple = ("note_midi", "note_rest", "note_dur"),
-                  note_pad_values: dict | None = None) -> dict:
+                  note_pad_values: dict | None = None, common: dict | None = None) -> dict:
     """Pad every array of a collated batch up to bucketed shapes.
 
     Adds ``mask`` [B, T] (True on real frames), ``batch_mask`` [B] (True on
     real rows), ``t_real`` (1,) (the length before bucketing, which the
-    losses normalise by) and ``size`` (the real row count). The JAX
-    package's cross-rank maxima (``common``, ``min_batch``) belong to
-    multi-process training, which the port leaves out."""
+    losses normalise by) and ``size`` (the real row count).
+
+    ``common`` (several processes): the maxima over every process's batch of
+    this step, ``{"t": frames, "b": rows, "n": notes}``, padded to as if
+    they were this batch's own, so every process holds one shape and
+    ``t_real`` agrees; ``b_multiple`` rounds the rows up to a multiple (the
+    process count, for a validation batch split over the processes)."""
     note_pad_values = note_pad_values or {}
     out = dict(batch)
     any_seq = out[length_keys[0]]
     B, T = any_seq.shape[0], any_seq.shape[1]
-    T_pad = bucket_length(T, length_grid)
-    B_pad = bucket_batch_size(B) if pad_batch else B
+    T_tgt = max(T, int(common.get("t", T))) if common else T
+    B_tgt = max(B, int(common.get("b", B))) if common else B
+    T_pad = bucket_length(T_tgt, length_grid)
+    B_pad = bucket_batch_size(B_tgt) if pad_batch else B_tgt
+    if common and int(common.get("b_multiple", 1)) > 1:
+        B_pad = round_up(B_pad, int(common["b_multiple"]))
 
     def pad_arr(arr, target_t, pad_value=0):
         pads = [(0, B_pad - arr.shape[0]), (0, target_t - arr.shape[1])]
@@ -72,6 +80,8 @@ def pad_to_bucket(batch: dict, length_grid: int = 128, pad_batch: bool = True,
             out[key] = pad_arr(out[key], T_pad)
     if note_keys:
         note_t = max((out[k].shape[1] for k in note_keys if k in out), default=0)
+        if common and note_t:
+            note_t = max(note_t, int(common.get("n", note_t)))
         note_t_pad = bucket_length(note_t, max(length_grid // 4, 1)) if note_t else 0
         for key in note_keys:
             if out.get(key) is not None:
@@ -88,6 +98,6 @@ def pad_to_bucket(batch: dict, length_grid: int = 128, pad_batch: bool = True,
         bm = np.zeros((B_pad,), dtype=bool)
         bm[:B] = True
         out["batch_mask"] = bm
-    out["t_real"] = np.full((1,), T, np.int32)
+    out["t_real"] = np.full((1,), T_tgt, np.int32)
     out["size"] = B
     return out

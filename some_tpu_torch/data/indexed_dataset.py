@@ -47,6 +47,13 @@ class IndexedDataset:
         return {key: (value[()].item() if value.shape == () else np.asarray(value[()]))
                 for key, value in group.items()}
 
+    def attr_length(self, index: int, key: str) -> int:
+        """The leading-axis length of one field of an item, from the HDF5
+        shape alone (no data read): the per-step common shapes of several
+        processes."""
+        ds = self._ensure_open()[f"{index}/{key}"]
+        return int(ds.shape[0]) if ds.shape else 0
+
     def close(self):
         if self._file is not None:
             self._file.close()

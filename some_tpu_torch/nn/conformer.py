@@ -13,7 +13,21 @@ adds is gated on ``self.training``:
   * with ``remat``, each dual-stream layer under
     ``torch.utils.checkpoint`` (``nn.remat`` in the JAX package). The
     recompute draws the same dropout masks and does not update the running
-    statistics a second time.
+    statistics a second time. ``remat_policy`` says what the forward keeps
+    for the backward, as the JAX policies do: ``nothing`` (recompute the
+    whole layer), ``dots`` (the outputs of the matrix products and
+    convolutions: aten ``mm``/``addmm``/``bmm``/``baddbmm``/``convolution``,
+    JAX's ``checkpoint_dots``), ``dots_no_batch`` (only the products without
+    batch dimensions, ``mm``/``addmm``: every Dense, not the plain
+    attention's batched products) and ``save_attn_conv`` (each block's
+    attention output after its dropout and the conv module's output, marked
+    by :func:`checkpoint_name` as JAX names ``attn_out`` and ``conv_out``).
+    The selective policies run through torch's selective checkpoint
+    (``create_selective_checkpoint_contexts``), which sees aten ops: the
+    hand-written kernels (K1, K2, K4) launch through ``ctypes`` inside
+    ``autograd.Function``s, so no policy saves their outputs and every
+    policy runs their forwards again in the recompute, as no JAX policy
+    saves a ``pallas_call``'s outputs;
 
 Parameters stay float32; computation runs in ``dtype`` with the JAX
 package's precision contract:
@@ -47,6 +61,7 @@ card, for comparing the two; no config key reads it.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -82,6 +97,8 @@ class Dropout(nn.Module):
         self.rate = float(rate)
         self.site = 0
         self.seed_step = None
+        #: (first row, global rows): this process's rows of the global batch
+        self.rows = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
@@ -92,15 +109,73 @@ class Dropout(nn.Module):
         gen = torch.Generator(device=x.device)
         gen.manual_seed(((seed * 1_000_003 + step) * 10_007 + self.site) % (1 << 63))
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+        if self.rows is None:
+            keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+        else:  # the global batch's mask, this process's rows of it
+            first, total = self.rows
+            keep = torch.rand((total, *x.shape[1:]), generator=gen, device=x.device)
+            keep = keep[first:first + x.shape[0]] < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def set_dropout_step(model: nn.Module, seed: int, step: int) -> None:
-    """Number the model's dropouts and key their masks to (seed, step)."""
+def set_dropout_step(model: nn.Module, seed: int, step: int, rows=None) -> None:
+    """Number the model's dropouts and key their masks to (seed, step);
+    ``rows`` = (first row, global rows) when this process holds part of a
+    global batch, so the masks are the one-process run's."""
     for site, module in enumerate(m for m in model.modules() if isinstance(m, Dropout)):
         module.site = site
         module.seed_step = (int(seed), int(step))
+        module.rows = rows
+
+
+@functools.lru_cache(maxsize=None)
+def _checkpoint_name_op():
+    """``some_tpu_torch::checkpoint_name``, registered on first use: a copy of
+    its input (a registered op returns no alias of its input), whose
+    gradient passes through. It marks a tensor for ``save_attn_conv``."""
+    @torch.library.custom_op("some_tpu_torch::checkpoint_name", mutates_args=())
+    def checkpoint_name_op(x: torch.Tensor, name: str) -> torch.Tensor:
+        return x.clone()
+
+    @checkpoint_name_op.register_fake
+    def _(x, name):
+        return torch.empty_like(x)
+
+    checkpoint_name_op.register_autograd(lambda ctx, grad: (grad, None))
+    return checkpoint_name_op
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``jax.ad_checkpoint.checkpoint_name``: the same values, as an op the
+    ``save_attn_conv`` policy saves."""
+    return _checkpoint_name_op()(x, name)
+
+
+REMAT_POLICIES = ("nothing", "dots", "dots_no_batch", "save_attn_conv")
+
+
+def _saved_ops(policy: str):
+    aten = torch.ops.aten
+    if policy == "dots":
+        return {aten.mm, aten.addmm, aten.bmm, aten.baddbmm, aten.convolution}
+    if policy == "dots_no_batch":
+        return {aten.mm, aten.addmm}
+    _checkpoint_name_op()
+    return {torch.ops.some_tpu_torch.checkpoint_name}
+
+
+def _selective_contexts(policy: str):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a selective
+    policy: the ops it names are kept, all others recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    saved = _saved_ops(policy)
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return create_selective_checkpoint_contexts(policy_fn)
 
 
 class QDense(nn.Linear):
@@ -224,7 +299,10 @@ class MaskedBatchNorm(nn.Module):
     Train: the mean and the biased variance over the frames ``mask`` marks
     real (all frames without a mask), and the running update in flax's
     convention, ``ra = 0.9 ra + 0.1 new``, with the unbiased variance, as
-    the JAX ``MaskedBatchNorm`` does; not again in a remat recompute."""
+    the JAX ``MaskedBatchNorm`` does; not again in a remat recompute. With
+    ``sync_stats`` (several processes, see :func:`set_sync_batch_stats`) the
+    counts and sums are summed over the processes, so the statistics are the
+    global batch's, as under the JAX package's GSPMD."""
 
     MOMENTUM = 0.9
 
@@ -237,13 +315,27 @@ class MaskedBatchNorm(nn.Module):
         self.eps = eps
         #: set while torch.utils.checkpoint recomputes the layer (see _Recompute)
         self.recomputing = False
+        self.sync_stats = False
+
+    def _global_stats(self, xf: torch.Tensor, mask: Optional[torch.Tensor]):
+        """(count, mean, biased var) over every process's real frames."""
+        from some_tpu_torch.parallel.distributed import all_sum, all_sum_grad
+
+        w = (mask.float()[..., None] if mask is not None
+             else torch.ones(xf.shape[:2] + (1,), device=xf.device))
+        count = torch.clamp(all_sum(w.sum()), min=1.0)
+        mean = all_sum_grad((xf * w).sum(dim=(0, 1))) / count
+        var = all_sum_grad((((xf - mean) ** 2) * w).sum(dim=(0, 1))) / count
+        return count, mean, var
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         xf = x.float()
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            if mask is not None:
+            if self.sync_stats:
+                count, mean, var = self._global_stats(xf, mask)
+            elif mask is not None:
                 w = mask.float()[..., None]
                 count = torch.clamp(w.sum(), min=1.0)
                 mean = (xf * w).sum(dim=(0, 1)) / count
@@ -295,6 +387,8 @@ class ConformerBlock(nn.Module):
         self.fuse_ffn = fuse_ffn
         self.quant = quant
         self.ffn_impl = "auto"
+        #: mark attn_out / conv_out for save_attn_conv (the remat'd layers' blocks)
+        self.checkpoint_names = False
         self.norm1 = LayerNorm(dim, dtype)
         self.ffn1 = FeedForward(dim, dtype, ffn_latent_drop, ffn_out_drop)
         self.norm2 = LayerNorm(dim, dtype)
@@ -317,9 +411,12 @@ class ConformerBlock(nn.Module):
         return ffn(norm(x)) * 0.5 + x
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        name = self.checkpoint_names and self.training and torch.is_grad_enabled()
         x = self._macaron_ffn(x, self.norm1, self.ffn1)
-        x = self.attn_drop(self.attn(self.norm2(x), mask)) + x
-        x = self.conv(self.norm3(x), mask) + x
+        att = self.attn_drop(self.attn(self.norm2(x), mask))
+        x = (checkpoint_name(att, "attn_out") if name else att) + x
+        cv = self.conv(self.norm3(x), mask)
+        x = (checkpoint_name(cv, "conv_out") if name else cv) + x
         x = self._macaron_ffn(x, self.norm4, self.ffn2)
         return self.norm5(x)
 
@@ -340,6 +437,13 @@ class DualStreamBlock(nn.Module):
         midi_msg = _glu(self.midi_gate(midi))
         bound_msg = _glu(self.bound_gate(bound))
         return midi + bound_msg, bound + midi_msg
+
+
+def set_sync_batch_stats(model: nn.Module, sync: bool) -> None:
+    """Take every BatchNorm's training statistics over all processes."""
+    for module in model.modules():
+        if isinstance(module, MaskedBatchNorm):
+            module.sync_stats = sync
 
 
 def set_kernel_impl(model: nn.Module, impl: str) -> None:
@@ -391,6 +495,8 @@ class MidiConformer(nn.Module):
         super().__init__()
         if quant not in ("none", "int8"):
             raise ValueError(f"quantize {quant!r}: 'none' or 'int8'")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r}: one of {REMAT_POLICIES}")
         self.lay = lay
         self.mask_attention = mask_attention
         self.compute_dtype = dtype
@@ -404,7 +510,10 @@ class MidiConformer(nn.Module):
         self.in_proj_midi = QDense(indim, dim, dtype=dtype)
         self.in_proj_bound = QDense(indim, dim, dtype=dtype)
         for i in range(lay):
-            self.add_module(f"layer_{i}", DualStreamBlock(dim, dtype, **block_args))
+            layer = DualStreamBlock(dim, dtype, **block_args)
+            for block in (layer.midi_block, layer.bound_block):
+                block.checkpoint_names = remat and remat_policy == "save_attn_conv"
+            self.add_module(f"layer_{i}", layer)
         self.final_midi = ConformerBlock(dim, dtype=dtype, **block_args)
         self.final_bound = ConformerBlock(dim, dtype=dtype, **block_args)
         self.out_proj = QDense(dim, outdim, dtype=dtype)
@@ -421,15 +530,14 @@ class MidiConformer(nn.Module):
         # the dual-stream layers take `mask` and the final blocks `attn_mask`,
         # as in the JAX package
         remat = self.remat and self.training and torch.is_grad_enabled()
-        if remat and self.remat_policy != "nothing":
-            raise NotImplementedError(
-                f"remat_policy {self.remat_policy!r}: only 'nothing' (recompute the whole "
-                "layer) is ported: see ROADMAP.md")
+        selective = {}
+        if self.remat_policy != "nothing":
+            selective["context_fn"] = functools.partial(_selective_contexts, self.remat_policy)
         for i in range(self.lay):
             layer = getattr(self, f"layer_{i}")
             if remat:
                 midi, bound = checkpoint(_Recompute(layer), midi, bound, mask,
-                                         use_reentrant=False)
+                                         use_reentrant=False, **selective)
             else:
                 midi, bound = layer(midi, bound, mask)
             if mask is not None:

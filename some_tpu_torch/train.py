@@ -8,6 +8,11 @@ unless ``--device cpu``.
 
     python -m some_tpu_torch.train --config configs/midi_conformer.yaml \\
         --exp_name NAME [--work_dir DIR] [--max_steps N] [--device cpu]
+
+Several processes: start one per device with SOME_TPU_COORDINATOR=host:port,
+SOME_TPU_NUM_PROCESSES and SOME_TPU_PROCESS_ID set (or under torchrun); the
+CLI joins the group before anything touches the device, and process 0
+alone prints and writes the config and the event files.
 """
 from __future__ import annotations
 
@@ -50,26 +55,37 @@ def main(argv=None):
     logging.basicConfig(stream=sys.stdout, level=logging.INFO,
                         format="%(asctime)s %(message)s", datefmt="%m/%d %I:%M:%S %p")
 
+    from some_tpu_torch.parallel import distributed as dist
     from some_tpu_torch.training.trainer import Trainer
 
+    # join the process group first (a no-op unless SOME_TPU_COORDINATOR or
+    # torchrun's variables are set): it picks this process's card
+    dist.maybe_initialize(args.device)
+    is_rank0 = dist.rank() == 0
     config = read_full_config(pathlib.Path(args.config))
-    print_config(config)
+    if is_rank0:
+        print_config(config)
     work_dir = pathlib.Path(args.work_dir) if args.work_dir else pathlib.Path("experiments")
     work_dir = work_dir / args.exp_name
     if work_dir.exists() and not work_dir.is_dir():
         raise NotADirectoryError(f"Path '{work_dir}' is not a directory.")
     work_dir.mkdir(parents=True, exist_ok=True)
-    save_yaml(config, work_dir / "config.yaml")
+    if is_rank0:
+        save_yaml(config, work_dir / "config.yaml")
     config["work_dir"] = str(work_dir)
 
     task = build_task(config, device=args.device)
     log_writer = None
+    if is_rank0:
+        try:
+            from tensorboardX import SummaryWriter
+            log_writer = SummaryWriter(logdir=str(work_dir / "lightning_logs" / "lastest"))
+        except ImportError:
+            pass
     try:
-        from tensorboardX import SummaryWriter
-        log_writer = SummaryWriter(logdir=str(work_dir / "lightning_logs" / "lastest"))
-    except ImportError:
-        pass
-    Trainer(task, work_dir, log_writer=log_writer).fit(max_steps=args.max_steps)
+        Trainer(task, work_dir, log_writer=log_writer).fit(max_steps=args.max_steps)
+    finally:
+        dist.destroy()
 
 
 if __name__ == "__main__":

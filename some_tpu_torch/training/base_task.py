@@ -1,6 +1,6 @@
 """Task: the model, its losses, the optimizer, and the train and valid steps.
 
-Counterpart of ``some_tpu/training/base_task.py``, single process. The
+Counterpart of ``some_tpu/training/base_task.py``. The
 JAX ``TrainState`` (params, batch_stats, opt_state, step) becomes
 :class:`TrainState`: the model (weights, and BatchNorm statistics in its
 buffers), the torch optimizer, ``step`` (micro-batches, as the JAX step
@@ -20,6 +20,15 @@ One train step, as the JAX step computes it:
     ``optax.multi_transform``.
 The logs stay on the device (0-d tensors), so a step never waits for the
 card; the trainer reads them at its log interval.
+
+Several processes (``parallel/distributed.py``): each holds its rows of the
+global batch, and the step is the JAX step over that batch. The losses
+divide by the global row, frame and label counts (each process's loss is
+its share of the global loss), BatchNorm takes its statistics over every
+process's frames, each dropout mask is the global batch's mask cut to this
+process's rows, the gradients are summed over the processes before the
+norm, the clip and the update, and the logs are the global losses; every
+process then holds the same parameters.
 """
 from __future__ import annotations
 
@@ -31,8 +40,9 @@ import torch
 
 from some_tpu_torch.data.indexed_dataset import IndexedDataset, load_lengths
 from some_tpu_torch.inference.base_infer import resolve_device
-from some_tpu_torch.nn.conformer import set_dropout_step
+from some_tpu_torch.nn.conformer import set_dropout_step, set_sync_batch_stats
 from some_tpu_torch.nn.init import init_model
+from some_tpu_torch.parallel import distributed as dist
 from some_tpu_torch.training.optimizers import (
     build_optimizer, clip_by_global_norm_, global_norm,
 )
@@ -93,13 +103,14 @@ class BaseTask:
     def init_state(self, seed: int | None = None) -> TrainState:
         """The model with ``torch_style_init`` weights for ``seed`` (the
         config's by default) drawn in flax's parameter order, so they equal
-        the JAX task's ``init_state``, and a fresh optimizer."""
+        the JAX task's ``init_state``, and a fresh optimizer. With
+        ``torch_style_init: false``, flax's own initializers' distributions
+        (``nn/init.flax_default_init``; other values than JAX's draws)."""
         seed = self.config["seed"] if seed is None else seed
-        if not self.config.get("torch_style_init", True):
-            raise NotImplementedError("torch_style_init: false (flax's own initializers, "
-                                      "drawn with jax.random) has no counterpart in the port")
         model = self.build_model()
-        init_model(model, seed, remat=bool(self.config.get("use_remat", True)))
+        init_model(model, seed, remat=bool(self.config.get("use_remat", True)),
+                   torch_style=bool(self.config.get("torch_style_init", True)))
+        set_sync_batch_stats(model, dist.is_active())
         model.to(self.device).train()
         return TrainState(model, self.make_optimizer(model))
 
@@ -122,7 +133,11 @@ class BaseTask:
         ``batch`` is a collated numpy batch or one already on the device."""
         model = state.model
         model.train()
-        set_dropout_step(model, self.config["seed"], state.step)
+        rows = None
+        if dist.is_active():  # this process's rows of the global batch
+            b = batch["units"].shape[0]
+            rows = (dist.rank() * b, dist.world_size() * b)
+        set_dropout_step(model, self.config["seed"], state.step, rows)
         if any(isinstance(v, np.ndarray) for v in batch.values()):
             batch = self.to_device(batch)
         outputs = model(**self.model_inputs(batch))
@@ -132,6 +147,7 @@ class BaseTask:
             p.grad = None
         total.backward()
         named = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
+        dist.all_sum_grads_([p.grad for _, p in named])
         grad_norm = global_norm([p.grad for _, p in named])
         k = self.grad_accum
         if k == 1:
@@ -151,8 +167,19 @@ class BaseTask:
                 self._apply(state, named)
                 state.accumulator = None
         state.step += 1
-        return {**{key: v.detach() for key, v in losses.items()},
-                "total_loss": total.detach(), "grad_norm": grad_norm}
+        return self._global_losses(losses, total, grad_norm=grad_norm)
+
+    @staticmethod
+    def _global_losses(losses: Dict[str, torch.Tensor], total: torch.Tensor, **extra):
+        """The global batch's losses and their ``total_loss``: each
+        process's shares summed; one process's own, detached, without a
+        group."""
+        if not dist.is_active():
+            return {**{k: v.detach() for k, v in losses.items()},
+                    "total_loss": total.detach(), **extra}
+        summed = dist.all_sum(torch.stack([v.detach().float() for v in losses.values()]))
+        out = dict(zip(losses, summed.unbind()))
+        return {**out, "total_loss": sum(out.values()), **extra}
 
     def _apply(self, state: TrainState, named) -> None:
         grads = [p.grad for n, p in named if not self.is_frozen(n)]
@@ -168,7 +195,8 @@ class BaseTask:
     @torch.no_grad()
     def valid_step(self, state: TrainState, batch: dict):
         """Eval-mode forward (running statistics, no dropout, the inference
-        kernels): (losses with ``total_loss``, ``valid_outputs``)."""
+        kernels): (losses with ``total_loss``, ``valid_outputs``); with
+        several processes the global losses and ``midi_acc`` counts."""
         model = state.model
         model.eval()
         try:
@@ -176,8 +204,12 @@ class BaseTask:
                 batch = self.to_device(batch)
             outputs = model(**self.model_inputs(batch))
             losses = self.compute_losses(outputs, batch)
-            losses["total_loss"] = sum(losses.values())
-            return losses, self.valid_outputs(outputs, batch)
+            losses = self._global_losses(losses, sum(losses.values()))
+            extras = self.valid_outputs(outputs, batch)
+            for key in ("midi_acc_correct", "midi_acc_total"):
+                if key in extras:
+                    extras[key] = dist.all_sum(extras[key])
+            return losses, extras
         finally:
             model.train()
 

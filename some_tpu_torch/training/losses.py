@@ -37,9 +37,11 @@ def binary_emd_per_row_masked(pred: torch.Tensor, target: torch.Tensor,
 
 
 def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
-                         ignore_index: int = -1) -> torch.Tensor:
+                         ignore_index: int = -1, count_sum=None) -> torch.Tensor:
     """logits [B, T, C], int labels [B, T]: the mean over the labels that are
-    not ``ignore_index`` of the f32 log-sum-exp minus the picked logit."""
+    not ``ignore_index`` of the f32 log-sum-exp minus the picked logit.
+    ``count_sum`` (the count's sum over processes) makes the mean's divisor
+    the global batch's."""
     logits = logits.float()
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
@@ -47,7 +49,8 @@ def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
     logz = torch.log(torch.exp(logits - top).sum(dim=-1)) + top.squeeze(-1)
     picked = torch.gather(logits, -1, safe[..., None]).squeeze(-1)
     nll = (logz - picked) * valid
-    return nll.sum() / torch.clamp(valid.sum(), min=1)
+    count = valid.sum() if count_sum is None else count_sum(valid.sum())
+    return nll.sum() / torch.clamp(count, min=1)
 
 
 def midi_accuracy_counts(midi_pred, rest_pred, midi_gt, rest_gt, mask=None,

@@ -6,7 +6,8 @@ framewise labels, gathered on the device from the note labels through the
 ``unit2note`` alignment; frame slot 0, the padding of a bucket and the rows
 that pad the batch carry label -1 and drop out. The boundary loss is the
 continuous task's. Validation decodes notes by argmax and counts
-``midi_acc``; its plots wait, as for the continuous task.
+``midi_acc``; :meth:`validation_plots` draws the ``boundary``, ``midi`` and
+``final`` figures of the continuous task.
 """
 from __future__ import annotations
 
@@ -19,8 +20,11 @@ import torch.nn.functional as F
 from some_tpu_torch.data.collate import collate_nd, pad_to_bucket
 from some_tpu_torch.inference.me_quant_infer import REST_CLASS
 from some_tpu_torch.ops.decode import decode_bounds_to_alignment, decode_note_sequence
+from some_tpu_torch.parallel.distributed import all_sum
 from some_tpu_torch.training import losses as L
-from some_tpu_torch.training.me_task import MIDIExtractionTask, bounds_from_alignment
+from some_tpu_torch.training.me_task import (
+    PLOTTED, MIDIExtractionTask, _note_figures, _row0, bounds_from_alignment,
+)
 
 
 def framewise_labels(note_midi: torch.Tensor, unit2note: torch.Tensor,
@@ -40,12 +44,12 @@ class QuantizedMIDIExtractionTask(MIDIExtractionTask):
     def compute_losses(self, outputs, batch) -> Dict[str, torch.Tensor]:
         midi_logits, bounds_pred = outputs
         row_w = batch["batch_mask"].float()
-        n_rows = torch.clamp(row_w.sum(), min=1.0)
+        n_rows = torch.clamp(all_sum(row_w.sum()), min=1.0)
         losses = {}
         if self.use_midi_loss:
             labels = framewise_labels(batch["note_midi"], batch["unit2note"])
             labels = torch.where(batch["batch_mask"][:, None], labels, torch.full_like(labels, -1))
-            losses["midi_loss"] = L.cross_entropy_ignore(midi_logits, labels)
+            losses["midi_loss"] = L.cross_entropy_ignore(midi_logits, labels, count_sum=all_sum)
         if self.use_bound_loss:
             target = bounds_from_alignment(batch["unit2note"])
             t_real, frame_w = self._frame_weights(batch, bounds_pred.shape[1])
@@ -80,7 +84,18 @@ class QuantizedMIDIExtractionTask(MIDIExtractionTask):
                 "n_notes": frame2note.amax(dim=1), "midi_pred": midi_pred, "midi_gt": midi_gt,
                 "midi_acc_correct": correct, "midi_acc_total": total}
 
-    def collate(self, items: list) -> dict:
+    def validation_plots(self, trainer, batch_idx: int, batch: dict, extras: dict,
+                         step: int) -> None:
+        """The JAX quantized task's figures of row 0 (rests are class 128)."""
+        if trainer.log_writer is None:
+            return
+        host = {k: _row0(extras[k]) for k in PLOTTED if k in extras}
+        b = {k: _row0(v) for k, v in batch.items()
+             if isinstance(v, (np.ndarray, torch.Tensor)) and np.ndim(v) >= 2}
+        _note_figures(trainer.log_writer, batch_idx, b, host, b["note_midi"] == REST_CLASS,
+                      step)
+
+    def collate(self, items: list, common: dict | None = None) -> dict:
         batch = {"units": collate_nd([i["units"] for i in items]),
                  "pitch": collate_nd([i["pitch"] for i in items]),
                  "note_midi": collate_nd([i["note_midi"] for i in items], pad_value=-1),
@@ -92,4 +107,4 @@ class QuantizedMIDIExtractionTask(MIDIExtractionTask):
             batch, length_grid=int(self.config.get("frame_bucket_grid", 128)),
             length_keys=("units", "pitch", "unit2note"),
             note_keys=("note_midi", "note_dur", "note_mask"),
-            note_pad_values={"note_midi": -1})
+            note_pad_values={"note_midi": -1}, common=common)

@@ -7,8 +7,9 @@ the raw note arrays. Losses: BCE with logits on the targets plus the
 cumsum EMD on the boundaries; padding rows are weighted out by
 ``batch_mask``, and with ``loss_exclude_bucket_padding`` (default) the
 frames past ``t_real`` (the bucket padding) are too. Validation decodes
-notes on the device and counts ``midi_acc``; its plots wait, as the card's
-machine has no matplotlib.
+notes on the device and counts ``midi_acc``; :meth:`validation_plots` draws
+the first row of a batch (``prob``, ``boundary``, ``midi``, ``final``) on the
+host, for the batches the trainer plots.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from some_tpu_torch.nn.model import build_midi_extractor
 from some_tpu_torch.ops.decode import (
     decode_bounds_to_alignment, decode_gaussian_blurred_probs, decode_note_sequence,
 )
+from some_tpu_torch.parallel.distributed import all_sum
 from some_tpu_torch.training import losses as L
 from some_tpu_torch.training.base_task import BaseTask
 
@@ -38,6 +40,36 @@ def gaussian_note_targets(note_midi, note_rest, note_mask, unit2note, midi_min: 
     probs = probs * (note_mask & ~note_rest)[:, :, None]
     probs = F.pad(probs, (0, 0, 1, 0))  # row 0: the padding note
     return torch.gather(probs, 1, unit2note.long()[:, :, None].expand(-1, -1, num_bins))
+
+
+# the validation outputs the figures read
+PLOTTED = ("probs", "bounds", "n_notes", "note_midi", "note_dur", "note_rest", "midi_pred",
+           "midi_gt")
+
+
+def _row0(value) -> np.ndarray:
+    """Row 0 of a batch or output array, on the host."""
+    if isinstance(value, torch.Tensor):
+        value = value[0].detach().cpu().numpy()
+    else:
+        value = np.asarray(value)[0]
+    return value
+
+
+def _note_figures(w, batch_idx: int, b: dict, host: dict, rest_gt, step: int) -> None:
+    """The ``boundary``, ``midi`` and ``final`` figures both tasks draw."""
+    from some_tpu_torch.utils import plot as P
+
+    n = int(host["n_notes"])
+    bounds_gt = (np.diff(b["unit2note"], prepend=0) > 0).astype(np.float32)
+    w.add_figure(f"boundary/{batch_idx}", P.boundary_to_figure(
+        bounds_gt, host["bounds"], b["note_dur"], host["note_dur"][:n]), step)
+    w.add_figure(f"midi/{batch_idx}", P.curve_to_figure(
+        host["midi_gt"], host["midi_pred"], curve_base=b["pitch"], grid=1,
+        base_label="pitch"), step)
+    w.add_figure(f"final/{batch_idx}", P.pitch_notes_to_figure(
+        b["pitch"], b["note_midi"], b["note_dur"], rest_gt, host["note_midi"][:n],
+        host["note_dur"][:n], host["note_rest"][:n]), step)
 
 
 def bounds_from_alignment(unit2note: torch.Tensor) -> torch.Tensor:
@@ -74,7 +106,7 @@ class MIDIExtractionTask(BaseTask):
     def compute_losses(self, outputs, batch) -> Dict[str, torch.Tensor]:
         midi_logits, bounds_pred = outputs
         row_w = batch["batch_mask"].float()
-        n_rows = torch.clamp(row_w.sum(), min=1.0)
+        n_rows = torch.clamp(all_sum(row_w.sum()), min=1.0)
         t_real, frame_w = self._frame_weights(batch, midi_logits.shape[1])
         losses = {}
         if self.use_midi_loss:
@@ -121,7 +153,30 @@ class MIDIExtractionTask(BaseTask):
                 "n_notes": frame2note.amax(dim=1), "midi_pred": shown, "midi_gt": midi_gt,
                 "midi_acc_correct": correct, "midi_acc_total": total}
 
-    def collate(self, items: list) -> dict:
+    def validation_plots(self, trainer, batch_idx: int, batch: dict, extras: dict,
+                         step: int) -> None:
+        """The JAX task's figures of row 0 to the trainer's log writer: the
+        predicted and target probabilities and their difference, the
+        boundary cumsums with note durations, the midi curves over the
+        pitch, the notes over the pitch. Reads the device only here."""
+        from some_tpu_torch.utils import plot as P
+
+        if trainer.log_writer is None:
+            return
+        w = trainer.log_writer
+        host = {k: _row0(extras[k]) for k in PLOTTED if k in extras}
+        b = {k: _row0(v) for k, v in batch.items()
+             if isinstance(v, (np.ndarray, torch.Tensor)) and np.ndim(v) >= 2}
+        probs_gt = gaussian_note_targets(
+            *(torch.as_tensor(b[k])[None] for k in ("note_midi", "note_rest", "note_mask",
+                                                    "unit2note")),
+            self.midi_min, self.midi_max, self.num_bins, self.midi_deviation)[0].numpy()
+        spec_cat = np.concatenate([np.abs(host["probs"] - probs_gt), probs_gt, host["probs"]],
+                                  axis=-1)
+        w.add_figure(f"prob/{batch_idx}", P.spec_to_figure(spec_cat, 0, 1), step)
+        _note_figures(w, batch_idx, b, host, b["note_rest"], step)
+
+    def collate(self, items: list, common: dict | None = None) -> dict:
         batch = {key: collate_nd([i[key] for i in items])
                  for key in ("units", "pitch", "note_midi", "note_rest", "note_dur",
                              "unit2note")}
@@ -130,4 +185,4 @@ class MIDIExtractionTask(BaseTask):
         return pad_to_bucket(
             batch, length_grid=int(self.config.get("frame_bucket_grid", 128)),
             length_keys=("units", "pitch", "unit2note"),
-            note_keys=("note_midi", "note_rest", "note_dur", "note_mask"))
+            note_keys=("note_midi", "note_rest", "note_dur", "note_mask"), common=common)

@@ -3,13 +3,16 @@
 Counterpart of ``some_tpu/training/schedules.py``. Each computes in float32
 as the JAX package does, so the values match bit for bit; the step is the
 number of updates applied before this one. ``build_schedule`` resolves the
-config's ``scheduler_cls`` (the reference class paths the configs name).
+config's ``scheduler_cls`` (the reference class paths the configs name),
+these two or one of ``extra_schedules.py``.
 """
 from __future__ import annotations
 
 import inspect
 
 import numpy as np
+
+from some_tpu_torch.training import extra_schedules
 
 _F32 = np.float32
 
@@ -52,20 +55,23 @@ class WarmupCosineSchedule:
         return float(_F32(self.base_lr) * (warm if step < _F32(self.warmup_steps) else cos))
 
 
+# the class paths configs name (some_tpu/registry.py's aliases) -> the schedule
 SCHEDULES = {
     "lr_scheduler.scheduler.WarmupLR": WarmupLR,
     "utils.training_utils.WarmupCosineSchedule": WarmupCosineSchedule,
+    **{f"lr_scheduler.scheduler.{cls.__name__}": cls for cls in (
+        extra_schedules.SGDRLR, extra_schedules.LSGDRLR, extra_schedules.V2LSGDRLR,
+        extra_schedules.V3LSGDRLR, extra_schedules.NoamHoldAnnealing)},
 }
 
 
 def build_schedule(scheduler_args: dict, base_lr: float):
     """Config dict -> schedule callable; keys the class does not take are
-    dropped, as the JAX registry's filter_kwargs does; class paths the port
-    lacks raise."""
+    dropped, as the JAX registry's filter_kwargs does; other class paths
+    raise."""
     name = scheduler_args["scheduler_cls"]
     if name not in SCHEDULES:
-        raise NotImplementedError(f"lr scheduler {name!r} is still to port (have "
-                                  f"{sorted(SCHEDULES)}): see ROADMAP.md")
+        raise ValueError(f"unknown lr scheduler {name!r} (have {sorted(SCHEDULES)})")
     cls = SCHEDULES[name]
     kwargs = {k: v for k, v in scheduler_args.items() if k != "scheduler_cls"}
     kwargs["lr"] = base_lr
