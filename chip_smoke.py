@@ -82,6 +82,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
      with the ``bench_binarize`` line of the card's pass, then two train
      steps of the default model on the card's items; ContentVec at full
      HuBERT-base width, card against CPU and padded against unpadded;
+  6d. export (``export``), from the default bf16 checkpoint at production
+     width: bucket 512 exported on the card as a ``torch.export`` program
+     (``some_tpu_torch.deployment.export``), loaded and run twice on a 5.5 s
+     song from launch counts at 0 (K1 18 and K2 18 a forward; the opt-in
+     configuration K1 18, K3 36 and K4 18), against the exporter's engine
+     under eager dispatch; the ONNX bridge's graph of the same weights
+     (traced on the CPU) read by the port's ``onnx_inspect`` and executed by
+     its numpy ``onnx_run`` on 3 s of the song against the eager ONNX
+     module; torch's version and the artifacts' sizes;
   7. the engine in default bf16: a prewarm of every bucket up to 4096
      frames at rows 1-8 (its seconds and memory), and the infer CLI's cold
      case, a fresh process's ``load_engine`` + ``transcribe_file``, under
@@ -2699,6 +2708,186 @@ def lightning_check(torch, workdir: pathlib.Path, setup: dict):
     return {"vs_oracle": errs, "notes": notes, "launches": launched}
 
 
+EXPORT_BUCKET = 512
+
+
+def export_song() -> np.ndarray:
+    """A melody of 5.5 s (474 frames: bucket 512), the length the export
+    phase runs through the loaded programs."""
+    return make_song(2024, phrases=1, notes_per_phrase=16)[:int(5.5 * SR)]
+
+
+def export_program(torch, label: str, config: dict, state: dict, out: pathlib.Path,
+                   per_forward: dict, song: np.ndarray) -> tuple:
+    """Export bucket ``EXPORT_BUCKET`` of ``config`` on the card, load it, and
+    run ``song`` through it twice from launch counts at 0 (each forward must
+    launch ``per_forward``), then through the exporter's engine under eager
+    dispatch on the same bucket: probs and bounds bit for bit are expected,
+    else their largest difference is printed; the notes are held to the
+    graph-vs-eager rule either way (counts, durations and rests equal,
+    note_midi within 1e-3). Returns (result, launches of the two forwards)."""
+    from some_tpu_torch.deployment.export import MIDIExtractionExporter, load_exported
+    from some_tpu_torch.inference.base_infer import set_dispatch
+
+    t0 = time.perf_counter()
+    exporter = MIDIExtractionExporter(config, state_dict=state, device="cuda")
+    t1 = time.perf_counter()
+    exporter.export(out, buckets=(EXPORT_BUCKET,))
+    t2 = time.perf_counter()
+    pipeline = load_exported(out)
+    t3 = time.perf_counter()
+    engine = exporter.engine
+    set_dispatch(engine, "eager")
+    groups, _ = engine.bucket_groups([song])
+    (_, audio, mask), = groups
+    if tuple(mask.shape) != (1, EXPORT_BUCKET):
+        raise AssertionError(f"{label}: the song's bucket is {tuple(mask.shape)}")
+    reset_counts()
+    runs = [pipeline.run_bucket(audio, mask) for _ in range(2)]
+    torch.cuda.synchronize()
+    launched = read_counts()
+    want_launches = {name: 2 * per_forward.get(name, 0) for name in launched}
+    if launched != want_launches:
+        raise AssertionError(f"{label}: two forwards of the loaded program launched "
+                             f"{launched}, want {want_launches}")
+    got = runs[0]
+    if not all(torch.equal(runs[1][k], got[k]) for k in got):
+        raise AssertionError(f"{label}: two forwards of the loaded program differ")
+    want = engine.run_bucket_staged(*engine.stage_inputs(audio, mask), frames=True)
+    diffs = {key: float((got[key].float() - want[key].float()).abs().max())
+             for key in ("probs", "bounds")}
+    bit_for_bit = all(torch.equal(got[key], want[key]) for key in ("probs", "bounds"))
+    for key in ("n_notes", "note_dur", "note_rest"):
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"{label}: program vs eager dispatch {key} differ "
+                                 f"(probs, bounds max |d| {diffs})")
+    midi_diff = float((got["note_midi"] - want["note_midi"]).abs().max())
+    if midi_diff > 1e-3:
+        raise AssertionError(f"{label}: program vs eager note_midi differ by {midi_diff}")
+    notes = pipeline(song)
+    if len(notes["note_dur"]) != int(want["n_notes"][0]) or not len(notes["note_dur"]) \
+            or not np.isfinite(notes["note_midi"]).all():
+        raise AssertionError(f"{label}: the loaded pipeline sliced {len(notes['note_dur'])} "
+                             f"notes, want {int(want['n_notes'][0])}")
+    program_ms = median_ms(torch, lambda: pipeline.run_bucket(audio, mask), reps=5, warmup=1)
+    eager_ms = median_ms(torch, lambda: engine.run_bucket(audio, mask), reps=5, warmup=1)
+    size = (out / f"bucket_{EXPORT_BUCKET}.pt2").stat().st_size
+    result = {"engine_s": t1 - t0, "export_s": t2 - t1, "load_s": t3 - t2, "pt2_bytes": size,
+              "per_forward": {n: c // 2 for n, c in launched.items() if c},
+              "probs_bounds_bit_for_bit": bit_for_bit, "max_abs_diff": diffs,
+              "max_note_midi_diff": midi_diff, "notes": len(notes["note_dur"]),
+              "program_forward_ms": program_ms, "eager_forward_ms": eager_ms}
+    log(f"export {label}: engine {t1 - t0:.1f} s, torch.export + save {t2 - t1:.1f} s, load "
+        f"{t3 - t2:.1f} s, bucket_{EXPORT_BUCKET}.pt2 {size} bytes; a forward launches "
+        f"{result['per_forward']}; probs and bounds against eager dispatch "
+        f"{'bit for bit' if bit_for_bit else f'max |d| {diffs}'}, note_midi max |d| "
+        f"{midi_diff}, {result['notes']} notes; a forward {program_ms:.2f} ms (eager "
+        f"dispatch {eager_ms:.2f} ms)")
+    del pipeline, exporter, engine
+    torch.cuda.empty_cache()
+    return result, launched
+
+
+def export_check(torch, workdir: pathlib.Path):
+    """The export path from the default bf16 checkpoint of the infer phase
+    (``default-bf16/model.pt``), at production width:
+
+    * pt2: ``export_program`` of the default configuration (K1 18 and K2 18
+      a forward) and of the opt-in one (``fuse_ffn``, ``attention_impl:
+      splash``: K1 18, K3 36, K4 18), each traced on the card at bucket 512;
+    * onnx: ``export_onnx`` (traced on the CPU) of the same weights; its
+      summary read by ``deployment/onnx_inspect.py`` (opset 17, the I/O
+      names and dynamic axes, every load-bearing op, three ``Conv`` and five
+      ``LayerNormalization`` a block); ``deployment/onnx_run.py`` on the first
+      3 s of the song against the ONNX module run eagerly on the CPU
+      (tests/test_onnx_export.py's tolerances: note_midi 1e-4, rests equal,
+      durations 1e-6).
+
+    Prints torch's version and whether the private function that the
+    onnx-less export patches exists, and each artifact's size."""
+    from torch.onnx._internal.torchscript_exporter import onnx_proto_utils
+
+    from some_tpu_torch.config import load_yaml
+    from some_tpu_torch.deployment.onnx_export import _PATCH_KNOWN_TORCH
+    from some_tpu_torch.utils.checkpoint import load_state_dict
+
+    has_hook = callable(getattr(onnx_proto_utils, "_add_onnxscript_fn", None))
+    log(f"export: torch {torch.__version__}; onnx_proto_utils._add_onnxscript_fn "
+        f"{'exists' if has_hook else 'is missing'}; the onnx-less patch is verified on torch "
+        f"{_PATCH_KNOWN_TORCH}")
+    model = workdir / "default-bf16" / "model.pt"
+    config = load_yaml(model.with_name("config.yaml"))
+    state = load_state_dict(model)
+    args = config["midi_extractor_args"]
+    blocks = 2 * args["lay"] + 2
+    song = export_song()
+    result, launches = {"torch": torch.__version__, "add_onnxscript_fn": has_hook}, {}
+    for tag, overrides, per_forward in (
+            ("default", {}, {"depthwise_conv1d": blocks, "flash_attention": blocks}),
+            ("opt_in", OPT_IN, {"depthwise_conv1d": blocks, "fused_ln_ffn_residual": 2 * blocks,
+                                "splash_attention": blocks})):
+        result[tag], launches[f"export_{tag}"] = export_program(
+            torch, tag, dict(config, **overrides), state, workdir / f"export-{tag}",
+            per_forward, song)
+    result["onnx"] = onnx_check(torch, config, state, song, workdir)
+    return result, launches
+
+
+def onnx_check(torch, config: dict, state: dict, song: np.ndarray, workdir: pathlib.Path):
+    """The ONNX half of ``export_check``."""
+    from some_tpu_torch.deployment.onnx_export import build_onnx_module, export_onnx
+    from some_tpu_torch.deployment.onnx_inspect import read_model_summary
+    from some_tpu_torch.deployment.onnx_run import run_graph
+
+    blocks = 2 * config["midi_extractor_args"]["lay"] + 2
+    t0 = time.perf_counter()
+    onnx_path = export_onnx(config, state, workdir / "model.onnx")
+    export_s = time.perf_counter() - t0
+    summary = read_model_summary(onnx_path)
+    ops = summary["op_types"]
+    problems = []
+    if summary["opset"] != 17:
+        problems.append(f"opset {summary['opset']}")
+    if [n for n, _ in summary["inputs"]] != ["waveform"] or summary["inputs"][0][1][1] != \
+            "n_samples":
+        problems.append(f"inputs {summary['inputs']}")
+    if [n for n, _ in summary["outputs"]] != ["note_midi", "note_rest", "note_dur"] or any(
+            dims[1] != "n_notes" for _, dims in summary["outputs"]):
+        problems.append(f"outputs {summary['outputs']}")
+    for op in ("STFT", "Conv", "MatMul", "LayerNormalization", "Sigmoid", "CumSum",
+               "ScatterElements", "ArgMax"):
+        if not ops[op]:
+            problems.append(f"no {op}")
+    if ops["Conv"] != 3 * blocks or ops["LayerNormalization"] != 5 * blocks:
+        problems.append(f"{ops['Conv']} Conv and {ops['LayerNormalization']} "
+                        f"LayerNormalization for {blocks} blocks")
+    if problems:
+        raise AssertionError(f"ONNX graph: {problems}")
+    short = song[:3 * SR]
+    t0 = time.perf_counter()
+    got = run_graph(onnx_path, {"waveform": short[None]})
+    run_s = time.perf_counter() - t0
+    module = build_onnx_module(config, state)
+    with torch.no_grad():
+        want = [t.numpy() for t in module(torch.from_numpy(short[None]))]
+    if got[0].shape != want[0].shape or not got[0].shape[1]:
+        raise AssertionError(f"ONNX graph: {got[0].shape} notes, the module {want[0].shape}")
+    errs = {"note_midi": float(np.abs(got[0] - want[0]).max()),
+            "note_dur": float(np.abs(got[2] - want[2]).max()),
+            "note_rest_equal": bool(np.array_equal(got[1].astype(bool), want[1].astype(bool)))}
+    if errs["note_midi"] > 1e-4 or errs["note_dur"] > 1e-6 or not errs["note_rest_equal"]:
+        raise AssertionError(f"ONNX graph vs the eager module: {errs}")
+    result = {"export_s": export_s, "bytes": onnx_path.stat().st_size,
+              "op_types": sum(ops.values()), "run_s": run_s, "notes": got[0].shape[1],
+              "vs_eager": errs}
+    log(f"export onnx: traced on the CPU in {export_s:.1f} s, {onnx_path.stat().st_size} "
+        f"bytes, opset 17, {sum(ops.values())} nodes ({ops['Conv']} Conv, {ops['MatMul']} "
+        f"MatMul, {ops['LayerNormalization']} LayerNormalization); the numpy executor ran "
+        f"{len(short) / SR:.1f} s of audio in {run_s:.1f} s to {got[0].shape[1]} notes, "
+        f"against the eager module {errs}")
+    return result
+
+
 def oversize_split(torch, workdir: pathlib.Path, setup: dict):
     """Song 0 through one default bf16 engine whose frame buckets stop at
     256, so each of its chunks splits at the bucket boundary and
@@ -3397,6 +3586,8 @@ def main() -> int:
         launches.update(surface_counts)
         results["binarize"], launches["binarize_train"] = phase("binarize", binarize_check,
                                                                 torch, work)
+        results["export"], export_counts = phase("export", export_check, torch, work)
+        launches.update(export_counts)
         # after every profiled replay: with these 66 graphs captured earlier
         # in the process, torch.profiler has missed a kernel record of a replay
         model = work / "default-bf16" / "model.pt"

@@ -11,7 +11,6 @@ import pathlib
 
 import numpy as np
 from scipy.io import wavfile
-from scipy.signal import resample_poly
 
 from some_tpu_torch import native
 
@@ -23,6 +22,8 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     """Polyphase resample along the last axis; float32 out."""
     if orig_sr == target_sr:
         return np.asarray(audio, dtype=np.float32)
+    from scipy.signal import resample_poly  # imported here: seconds of a cold process's start
+
     g = math.gcd(int(orig_sr), int(target_sr))
     out = resample_poly(np.asarray(audio, dtype=np.float64),
                         target_sr // g, orig_sr // g, axis=-1)
@@ -136,5 +137,7 @@ def decimate_wire(audio: np.ndarray, factor: int) -> np.ndarray:
         if native.native_available():
             return native.decimate_fir_native(x, taps, factor)
         return _decimate_fir(x, taps, factor)
+    from scipy.signal import resample_poly
+
     return resample_poly(np.asarray(audio, dtype=np.float32), 1, factor,
                          axis=-1, window=taps).astype(np.float32)

@@ -22,7 +22,10 @@ different semantics, as in the JAX package:
   splash's reference, and a CPU tensor runs it.
 
 On the card, a call that needs no gradient launches the inference kernel
-(counted in ``flash_attention.launches`` / ``splash_attention.launches``). A
+(counted in ``flash_attention.launches`` / ``splash_attention.launches``)
+through the op ``torch.ops.some_tpu.flash_attention`` /
+``splash_attention`` (``ops/library.py``; on the CPU the op runs the plain
+version). A
 call whose q, k or v needs a gradient goes through
 :class:`FlashAttentionFn` / :class:`SplashAttentionFn`: the training forward
 also stores the row statistics (``*_fwd_res.launches``), and the backward
@@ -53,7 +56,7 @@ from typing import Optional
 
 import torch
 
-from some_tpu_torch.ops import _build
+from some_tpu_torch.ops import _build, custom_ops
 
 NEG_INF = -1e9
 HEAD_DIMS = (32, 64)
@@ -299,14 +302,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
     """``[B, H, T, D]`` attention: the CUDA kernels for a CUDA tensor
     (through :class:`FlashAttentionFn` when q, k or v needs a gradient), the
-    plain version for a CPU tensor. q, k and v may be strided views."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, mask, scale)
-    if q.device.type != "cuda":
+    plain version for a CPU tensor; a call in which no tensor needs a
+    gradient goes through the op ``torch.ops.some_tpu.flash_attention``
+    (``ops/library.py``) on either device. q, k and v may be strided views."""
+    if q.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"no attention kernel for device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.device.type == "cpu":
+            return attention_plain(q, k, v, mask, scale)
         return FlashAttentionFn.apply(q, k, v, mask, scale)
-    return _launch(q, k, v, mask, scale)
+    return custom_ops().flash_attention(q, k, v, mask, float(scale))
 
 
 flash_attention.launches = 0
@@ -493,16 +498,18 @@ def splash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
     """``[B, H, T, D]`` splash attention: q pre-scaled in plain PyTorch, then
     the CUDA kernels for a CUDA tensor (through :class:`SplashAttentionFn`
-    when q, k or v needs a gradient), the plain version for a CPU tensor.
-    ``splash_attention.launches`` counts the inference kernel."""
-    if q.device.type == "cpu":
-        return splash_attention_plain(q, k, v, mask, scale)
-    if q.device.type != "cuda":
+    when q, k or v needs a gradient), the plain version for a CPU tensor; a
+    call in which no tensor needs a gradient goes through the op
+    ``torch.ops.some_tpu.splash_attention`` (``ops/library.py``), which
+    pre-scales q itself, on either device. ``splash_attention.launches``
+    counts the inference kernel."""
+    if q.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"no attention kernel for device {q.device}")
-    qs = prescale(q, scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return SplashAttentionFn.apply(qs, k, v, mask)
-    return _splash_forward(qs, k, v, mask, splash_attention)[0]
+        if q.device.type == "cpu":
+            return splash_attention_plain(q, k, v, mask, scale)
+        return SplashAttentionFn.apply(prescale(q, scale), k, v, mask)
+    return custom_ops().splash_attention(q, k, v, mask, float(scale))
 
 
 splash_attention.launches = 0

@@ -3,9 +3,11 @@
 Counterpart of ``some_tpu/ops/depthwise.py``. On a CUDA tensor
 :func:`depthwise_conv1d` runs the hand-written Hopper kernels of
 ``csrc/depthwise_conv.cu`` (which replace the Pallas TPU kernel ``_dw_kernel``
-and the XLA weight-gradient reduction of its custom VJP) through
-:class:`DepthwiseConv1dFn`; on a CPU tensor it runs
-:func:`depthwise_conv1d_plain`, whose autograd is the plain backward.
+and the XLA weight-gradient reduction of its custom VJP), through
+:class:`DepthwiseConv1dFn` where a gradient is needed and through the op
+``torch.ops.some_tpu.depthwise_conv1d`` (``ops/library.py``) where none is;
+on a CPU tensor it runs :func:`depthwise_conv1d_plain` (through the same op
+where no gradient is needed), whose autograd is the plain backward.
 
 Backward, as the JAX custom VJP: ``dx`` is the forward kernel on the
 cotangent with the taps read in reverse order (:func:`depthwise_conv1d_dx`;
@@ -23,7 +25,7 @@ import functools
 
 import torch
 
-from some_tpu_torch.ops import _build
+from some_tpu_torch.ops import _build, custom_ops
 
 # the tap counts the kernels are built for: every config's kernel_size, and 7
 KERNEL_TAPS = (7, 31)
@@ -172,22 +174,27 @@ class DepthwiseConv1dFn(torch.autograd.Function):
 def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """y[b,t,c] = sum_tap x[b, t + tap - (k-1)/2, c] * w[tap, c].
 
-    ``impl='auto'`` runs the CUDA kernels for a CUDA tensor (through
-    :class:`DepthwiseConv1dFn` where x or w needs a gradient, else launched
-    directly) and the plain version for a CPU tensor; ``impl='plain'`` runs
-    the plain version anywhere (the counterpart of the JAX ``impl='xla'``).
-    ``depthwise_conv1d.launches`` counts forward kernel launches."""
+    ``impl='auto'``: a call in which x or w needs a gradient runs
+    :class:`DepthwiseConv1dFn` (the CUDA kernels) on a CUDA tensor and the
+    plain version on a CPU tensor; any other call goes through the op
+    ``torch.ops.some_tpu.depthwise_conv1d`` (``ops/library.py``), which
+    launches the kernel on a CUDA tensor and runs the plain version on a CPU
+    one. ``impl='plain'`` runs the plain version anywhere (the counterpart
+    of the JAX ``impl='xla'``). ``depthwise_conv1d.launches`` counts forward
+    kernel launches."""
     if w.shape[0] % 2 != 1:
         raise ValueError("depthwise kernel size must be odd")
-    if impl == "plain" or (impl == "auto" and x.device.type == "cpu"):
+    if impl == "plain":
         return depthwise_conv1d_plain(x, w)
     if impl != "auto":
         raise ValueError(f"unknown depthwise impl {impl!r} (auto | plain)")
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"no depthwise kernel for device {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        if x.device.type == "cpu":
+            return depthwise_conv1d_plain(x, w)
         return DepthwiseConv1dFn.apply(x, w)
-    return _launch(x, w, depthwise_conv1d)
+    return custom_ops().depthwise_conv1d(x, w)
 
 
 depthwise_conv1d.launches = 0

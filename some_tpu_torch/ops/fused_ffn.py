@@ -3,8 +3,9 @@
 Counterpart of ``some_tpu/ops/fused_ffn.py``. On a CUDA tensor
 :func:`fused_ln_ffn_residual` launches the hand-written Hopper kernel of
 ``csrc/fused_ffn.cu`` (which replaces the Pallas TPU kernel ``_ffn_kernel``:
-bf16 on the tensor cores, f32 on the CUDA cores) and counts it in
-``fused_ln_ffn_residual.launches``; on a CPU tensor it runs
+bf16 on the tensor cores, f32 on the CUDA cores) through the op
+``torch.ops.some_tpu.fused_ln_ffn_residual`` (``ops/library.py``) and counts
+it in ``fused_ln_ffn_residual.launches``; on a CPU tensor the op runs
 :func:`fused_ln_ffn_residual_plain`. The bf16 kernel loads rows with TMA,
 so a bf16 x or weight whose rows are not 16-byte aligned raises; there is
 no fallback.
@@ -28,7 +29,7 @@ import functools
 
 import torch
 
-from some_tpu_torch.ops import _build
+from some_tpu_torch.ops import _build, custom_ops
 
 # (D, H) pairs the kernel is built for: the configs' width and the tests'
 WIDTHS = ((64, 256), (512, 2048))
@@ -105,16 +106,25 @@ def fused_ln_ffn_residual(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2,
                           impl: str = "auto") -> torch.Tensor:
     """x ``[B, T, D]`` -> ``x + res_scale * FFN(LN(x))`` in one pass.
 
-    ``impl='auto'`` launches the CUDA kernel for a CUDA tensor and runs the
-    plain version for a CPU tensor; ``impl='plain'`` runs the plain version
-    anywhere (for comparing the two on the card; no config key reads it)."""
-    if impl == "plain" or (impl == "auto" and x.device.type == "cpu"):
-        return fused_ln_ffn_residual_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, res_scale)
+    ``impl='auto'``: a call in which no tensor needs a gradient goes through
+    the op ``torch.ops.some_tpu.fused_ln_ffn_residual`` (``ops/library.py``),
+    which launches the CUDA kernel for a CUDA tensor and runs the plain
+    version for a CPU tensor; a call that needs one runs the plain version on
+    the CPU and raises on the card (the kernel has no backward).
+    ``impl='plain'`` runs the plain version anywhere (for comparing the two
+    on the card; no config key reads it)."""
+    args = (x, ln_scale, ln_bias, w1, b1, w2, b2)
+    if impl == "plain":
+        return fused_ln_ffn_residual_plain(*args, eps, res_scale)
     if impl != "auto":
         raise ValueError(f"unknown fused FFN impl {impl!r} (auto | plain)")
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"no fused FFN kernel for device {x.device}")
-    return _launch(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, res_scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        if x.device.type == "cpu":
+            return fused_ln_ffn_residual_plain(*args, eps, res_scale)
+        return _launch(*args, eps, res_scale)
+    return custom_ops().fused_ln_ffn_residual(*args, float(eps), float(res_scale))
 
 
 fused_ln_ffn_residual.launches = 0

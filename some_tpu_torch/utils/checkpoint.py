@@ -80,11 +80,25 @@ def load_checkpoint(path: pathlib.Path | str) -> dict:
             "batch_stats": ckpt.get("batch_stats") or {}, "opt_state": ckpt.get("opt_state")}
 
 
-def load_state_dict(path: pathlib.Path | str) -> Dict[str, torch.Tensor]:
-    """The port's state_dict from either checkpoint format."""
-    ckpt = load_checkpoint(path)
+def _state_dict(ckpt: dict) -> Dict[str, torch.Tensor]:
+    """The port's state_dict of a loaded checkpoint (:func:`load_checkpoint`)."""
     if ckpt["format"] != "jax":
         return ckpt["state_dict"]
     from some_tpu_torch.compat.from_jax import jax_params_to_state_dict
 
     return jax_params_to_state_dict(ckpt["params"], ckpt["batch_stats"])
+
+
+def load_state_dict(path: pathlib.Path | str) -> Dict[str, torch.Tensor]:
+    """The port's state_dict from either checkpoint format."""
+    return _state_dict(load_checkpoint(path))
+
+
+def simplify_checkpoint(in_path: pathlib.Path | str, out_path: pathlib.Path | str) -> pathlib.Path:
+    """Strip a checkpoint to what inference needs (counterpart of
+    ``some_tpu/training/checkpoint.py`` ``simplify_checkpoint``; reference:
+    simplify.py:7-21): any checkpoint this module reads becomes a port
+    checkpoint with its ``meta`` and ``state_dict`` (a JAX one's carried
+    across) and ``optimizer`` and ``accumulator`` None."""
+    ckpt = load_checkpoint(in_path)
+    return save_checkpoint(out_path, _state_dict(ckpt), ckpt["meta"])
