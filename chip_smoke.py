@@ -17,7 +17,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      forward with statistics, dk/dv, dq; K3 (fused LN -> FFN -> residual);
      K4 (splash attention) forward, forward with log-sum-exp, dk/dv, dq;
      for the tensor-core kernels, the time against SDPA (K3: the unfused
-     eager chain) and the bound;
+     eager chain) and the bound; then each tensor-core wrapper's route
+     (``routes``): the variant it launched for bf16 and for f32 inputs, read
+     from the libraries' own launch tables (``csrc/launch_counts.cuh``);
   4. the infer path: ``some_tpu_torch.infer`` at production geometry
      (configs/midi_conformer.yaml: 8 dual-stream layers, dim 512, 8 x 64
      heads, k=31), random weights from a seed, on synthetic songs, in bf16
@@ -74,6 +76,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
      some_tpu_torch.stream`` fed song 0 in 100 ms chunks (first-event
      latency, its MIDI against the offline path byte for byte); requires
      the native host plane (some_tpu_torch/native) built and called;
+  6b'. the serving mesh (``mesh``, the CLIs' ``--devices N``), in default
+     bf16 on the infer phase's checkpoint and songs: two engine replicas on
+     cuda:0 (and cuda:0 + cuda:1 through ``load_engine(devices=2)`` where
+     two cards exist), each from launch counts at 0: prewarm of the songs'
+     shard buckets (graphs per replica; launches 2 x per forward x graphs x
+     replicas), a file pass (note F1 >= 0.95 against one engine), warm RTF
+     beside the one engine on the same card (recorded, not gated), peak
+     reserved GiB per replica, an eager bucket run (K1 36 / K2 36), each
+     replica's graphs' kernel nodes (K1 18 / K2 18); one bucket in 32-true,
+     notes equal to one engine's; on two cards, every kernel on cuda:1 with
+     device 0 current against its plain version;
   6c. preprocessing (``binarize``): RMVPE at the published geometry on
      seeded random weights saved as an upstream ``model.pt``, one packed
      8-row chunk of 5-60 s songs on the card and two songs against the CPU
@@ -487,12 +500,16 @@ KERNEL_GROUPS = (("flash_fwd_stats", "flash_attention_fwd_res"),
 
 
 def profile_pass(torch, run):
-    """Device time of one warm pass by kernel, from torch.profiler. The
-    profiler's own overhead is inside ``wall_s``: the busy share that counts
-    divides ``device_ms`` by an unprofiled pass's wall time (the caller's)."""
+    """Device time of one warm pass by kernel, from torch.profiler's CUDA
+    activity alone: the kernels' records are all this reads, and recording
+    every host op as well cost seconds a pass (as it does a remat policy's
+    step, which ``remat_policies`` times under CUDA activity alone too). The
+    profiler's own overhead is inside ``wall_s``: the busy share
+    that counts divides ``device_ms`` by an unprofiled pass's wall time (the
+    caller's)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         wall_s = time.perf_counter() - t0
@@ -651,7 +668,9 @@ def graph_kernel_nodes(torch, engine, audio, mask) -> dict:
     itself: the bucket is captured again with its cudaGraph_t kept
     (``CUDAGraph(keep_graph=True)``) and printed by the CUDA driver
     (``cuGraphDebugDotPrint``, verbose), one line a kernel node; the
-    engine's own graph for the bucket is put back after."""
+    engine's own graph for the bucket is put back after. The bucket runs on
+    the engine's own device alone, so a mesh's replica (its first one
+    included) shows its own graph of a shard."""
     import ctypes
 
     class KeptGraph(torch.cuda.CUDAGraph):
@@ -665,7 +684,7 @@ def graph_kernel_nodes(torch, engine, audio, mask) -> dict:
     saved = engine._graphs.pop(key, None)
     plain_graph, torch.cuda.CUDAGraph = torch.cuda.CUDAGraph, KeptGraph
     try:
-        engine.run_bucket(audio, mask)
+        engine._run(*engine._stage(audio, mask), frames=False, capture=False)
     finally:
         torch.cuda.CUDAGraph = plain_graph
     kept = engine._graphs.pop(key)
@@ -822,6 +841,9 @@ def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False,
       forwards;
     * plain (the test-only ``impl`` switches at 'plain', eager).
 
+    The eager and plain engines take the graph engine's weights, so the
+    checkpoint is read (and, under int8, quantized) once a precision.
+
     Then: warm passes of graph and eager in turns (g e e g g e) with a
     profiled pass of each (device ms, busy share); ``dispatch_check`` (graph
     vs eager bit for bit, kernels of a replay); note F1 graph vs plain (1.0
@@ -881,7 +903,13 @@ def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False,
     for precision in precisions:
         # the main path: graphs, from counts at 0 through prewarm and a first pass
         reset_counts()
+        t0 = time.perf_counter()
         graph = load_engine(dirs[precision], device="cuda", quiet=True)
+        load_s = time.perf_counter() - t0
+        # the eager and plain engines take the graph engine's weights (int8
+        # ones quantized already) instead of reading, and quantizing, the
+        # checkpoint again
+        weights = graph.model.state_dict()
         if graph.model.quant != ("int8" if quantize else "none"):
             raise AssertionError(f"{tag} {precision}: the engine's model is {graph.model.quant}")
         n_prewarm, prewarm_s, graph_gib, graph_held_gib = timed_prewarm(
@@ -900,14 +928,15 @@ def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False,
         notes = [len(MidiFile.load(m).notes()) for m in midis]
         if min(notes) == 0:
             raise AssertionError(f"{tag} {precision}: a MIDI file with no notes: {notes}")
-        log(f"{tag} {precision} graph path: prewarm {n_prewarm} graphs of buckets "
+        log(f"{tag} {precision} graph path: load_engine {load_s:.2f} s; prewarm {n_prewarm} "
+            f"graphs of buckets "
             f"{setup['buckets']} in {prewarm_s:.2f} s, {graph_gib:.2f} GiB reserved "
             f"({graph_held_gib:.2f} GiB after empty_cache); first "
             f"pass {graph.forwards - n_prewarm} replays, launches "
             f"{ {n: c for n, c in graph_launched.items() if c} } (captures only)")
 
         reset_counts()
-        eager = load_engine(dirs[precision], device="cuda", quiet=True)
+        eager = load_engine(dirs[precision], device="cuda", quiet=True, state_dict=weights)
         set_dispatch(eager, "eager")
         eager_midis, eager_first_s = run_pass(eager, f"{precision}-eager")
         eager_launched = read_counts()
@@ -938,7 +967,8 @@ def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False,
         del graph, eager
         torch.cuda.empty_cache()
 
-        plain = load_engine(dirs[precision], device="cuda", quiet=True)
+        plain = load_engine(dirs[precision], device="cuda", quiet=True, state_dict=weights)
+        del weights
         set_kernel_impl(plain.model, "plain")
         set_dispatch(plain, "eager")
         reset_counts()
@@ -977,7 +1007,8 @@ def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False,
                 f"{extra['f1_vs_unquantized']}; resident weights {weight_bytes} bytes")
         result[precision] = {**extra,
             "notes": notes, "f1_vs_plain": f1, "f1_graph_vs_eager": graph_vs_eager_f1,
-            "audio_s": audio_s, "prewarm_graphs": n_prewarm, "prewarm_s": prewarm_s,
+            "audio_s": audio_s, "load_s": load_s, "prewarm_graphs": n_prewarm,
+            "prewarm_s": prewarm_s,
             "graph_reserved_gib": graph_gib, "graph_held_gib": graph_held_gib,
             "first_s": first_s, "eager_first_s": eager_first_s,
             "plain_first_s": plain_first_s, "warm_s": warm,
@@ -1607,6 +1638,70 @@ def report_tensor_core_kernels(rows, hmma):
                 f"{r['shape']}: {r['kernel_ms']:.4f} ms, {r['kernel_ms'] / yardstick:.2f}x "
                 f"{label} ({yardstick:.4f} ms), {r['bound_ms'] / r['kernel_ms']:.1%} of its "
                 f"bound ({r['bound_ms']:.4f} ms, {r['bound_by']})")
+
+
+def variants_launched(fn) -> dict:
+    """The kernel variants ``fn()`` launches, by name, from the libraries'
+    own launch tables (``csrc/launch_counts.cuh``), read before and after
+    it: torch.profiler loses records of short runs and of graph replays,
+    the tables do not."""
+    from some_tpu_torch.ops import _build
+
+    before = _build.variant_launches()
+    fn()
+    after = _build.variant_launches()
+    return {name: n - before.get(name, 0) for name, n in after.items()
+            if n != before.get(name, 0)}
+
+
+def check_routes(torch) -> dict:
+    """Each wrapper of TENSOR_CORE_KERNELS launches its tensor-core variant
+    once for bf16 inputs and its CUDA-core variant (true f32) once for f32
+    inputs, and no other variant, read from the launch tables. Inputs are
+    small: [2, 8, 130, 64] attention, [2, 70, 512] rows for K3."""
+    from some_tpu_torch.ops import attention as A
+    from some_tpu_torch.ops import fused_ffn as K3
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    routes = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (torch.randn((2, 8, 130, 64), generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        mask = torch.ones((2, 130), dtype=torch.bool, device="cuda")
+        mask[1, 90:] = False
+        out, stats = A.flash_attention_fwd_res(q, k, v, mask, 0.125)
+        delta = (do.float() * out.float()).sum(-1).contiguous()
+        lse = A.splash_attention_fwd_res(q, k, v, mask)[1]
+        x = torch.randn((2, 70, 512), generator=gen, device="cuda").to(dtype)
+        ln = [torch.ones(512, device="cuda"), torch.zeros(512, device="cuda"),
+              torch.randn((512, 2048), generator=gen, device="cuda") / 512,
+              torch.zeros(2048, device="cuda"),
+              torch.randn((2048, 512), generator=gen, device="cuda") / 2048,
+              torch.zeros(512, device="cuda")]
+        calls = {
+            "flash_attention": lambda: A.flash_attention(q, k, v, mask, 0.125),
+            "flash_attention_fwd_res": lambda: A.flash_attention_fwd_res(q, k, v, mask, 0.125),
+            "flash_attention_bwd_dkv": lambda: A.flash_attention_bwd_dkv(
+                q, k, v, do, stats, delta, mask, 0.125),
+            "flash_attention_bwd_dq": lambda: A.flash_attention_bwd_dq(
+                q, k, v, do, stats, delta, mask, 0.125),
+            "splash_attention": lambda: A.splash_attention(q, k, v, mask, 0.125),
+            "splash_attention_fwd_res": lambda: A.splash_attention_fwd_res(q, k, v, mask),
+            "splash_attention_bwd_dkv": lambda: A.splash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, mask),
+            "splash_attention_bwd_dq": lambda: A.splash_attention_bwd_dq(
+                q, k, v, do, lse, delta, mask),
+            "fused_ln_ffn_residual": lambda: K3.fused_ln_ffn_residual(x, *ln)}
+        for _, kernel, name in TENSOR_CORE_KERNELS:
+            with torch.no_grad():
+                launched = variants_launched(calls[name])
+            want = kernel if dtype == torch.bfloat16 else kernel.replace("_mma", "")
+            if launched != {want: 1}:
+                raise AssertionError(f"{name} {dtype}: launched variants {launched}, want "
+                                     f"{ {want: 1} }")
+            routes[f"{name} {str(dtype)[6:]}"] = want
+    log("variant routes (launch tables): " + json.dumps(routes))
+    return routes
 
 
 def make_item(rng, n_frames, n_notes, units_dim, discrete=False):
@@ -3311,6 +3406,273 @@ def surfaces(torch, workdir: pathlib.Path, setup: dict):
     return result, launches
 
 
+def kernels_on_second_card(torch) -> dict:
+    """K1-K4 and the backward kernels on ``cuda:1`` while device 0 is
+    current, in f32 (each wrapper makes the tensor's device current for its
+    launch): bit for bit the same kernels' results on ``cuda:0``, and within
+    their plain versions' tolerances on ``cuda:1`` (K1's forward and dx bit
+    for bit; the backward kernels 2 ulp + 0.002 RMS, K1 dw 1e-4 RMS);
+    device 0 still current after. Returns max |d|/tol by kernel."""
+    from some_tpu_torch.ops import attention as A
+    from some_tpu_torch.ops import depthwise as W
+    from some_tpu_torch.ops import fused_ffn as K3
+
+    gen = torch.Generator().manual_seed(11)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    B, H, T, D, C = 2, 8, 300, 64, 512
+    host = {"x": draw(B, T, C), "w": draw(31, C) / 8, "g": draw(B, T, C),
+            "q": draw(B, H, T, D), "k": draw(B, H, T, D), "v": draw(B, H, T, D),
+            "do": draw(B, H, T, D), "ffn": draw(B, T, C),
+            "ln": [torch.ones(C), torch.zeros(C), draw(C, 4 * C) / C, torch.zeros(4 * C),
+                   draw(4 * C, C) / (4 * C), torch.zeros(C)]}
+    host_mask = torch.ones(B, T, dtype=torch.bool)
+    host_mask[1, 200:] = False
+
+    def run(device):
+        t = {k: ([x.to(device) for x in v] if isinstance(v, list) else v.to(device))
+             for k, v in host.items()}
+        t["mask"] = host_mask.to(device)
+        q, k, v, do, m = t["q"], t["k"], t["v"], t["do"], t["mask"]
+        out = {"k1": W.depthwise_conv1d(t["x"], t["w"]),
+               "k1_dx": W.depthwise_conv1d_dx(t["g"], t["w"]),
+               "k1_dw": W.depthwise_conv1d_dw(t["x"], t["g"], 31)}
+        with torch.no_grad():
+            out["k2"] = A.flash_attention(q, k, v, m, 0.125)
+            out["k3"] = K3.fused_ln_ffn_residual(t["ffn"], *t["ln"])
+            out["k4"] = A.splash_attention(q, k, v, m, 0.125)
+        o, t["stats"] = A.flash_attention_fwd_res(q, k, v, m, 0.125)
+        t["delta"] = (do * o).sum(-1).contiguous()
+        out["k2_dq"], out["k2_delta"] = A.flash_attention_bwd_dq(q, k, v, do, t["stats"],
+                                                                 t["delta"], m, 0.125)
+        out["k2_dk"], out["k2_dv"] = A.flash_attention_bwd_dkv(q, k, v, do, t["stats"],
+                                                               out["k2_delta"], m, 0.125)
+        o4, t["lse"], _ = A.splash_attention_fwd_res(q, k, v, m)
+        t["di"] = A.splash_di(o4, None, do)
+        out["k4_dk"], out["k4_dv"] = A.splash_attention_bwd_dkv(q, k, v, do, t["lse"], t["di"], m)
+        out["k4_dq"] = A.splash_attention_bwd_dq(q, k, v, do, t["lse"], t["di"], m)
+        torch.cuda.synchronize(device)
+        return t, out
+
+    torch.cuda.set_device(0)
+    want_bits = run(torch.device("cuda", 0))[1]
+    t, got = run(torch.device("cuda", 1))
+    if torch.cuda.current_device() != 0:
+        raise AssertionError(f"device {torch.cuda.current_device()} current after the launches")
+    for key, value in got.items():
+        if value.device != torch.device("cuda", 1) or not torch.equal(value.cpu(),
+                                                                      want_bits[key].cpu()):
+            raise AssertionError(f"{key} on cuda:1 differs from cuda:0's ({value.device})")
+    q, k, v, do, m = t["q"], t["k"], t["v"], t["do"], t["mask"]
+    wants = {"k1": (W.depthwise_conv1d_plain(t["x"], t["w"]), None),
+             "k1_dx": (W.depthwise_conv1d_plain(t["g"], t["w"].flip(0)), None),
+             "k1_dw": (W.depthwise_conv1d_dw_plain(t["x"], t["g"], 31), 1e-4),
+             "k2": (A.attention_plain(q, k, v, m, 0.125), attention_tolerance),
+             "k3": (K3.fused_ln_ffn_residual_plain(t["ffn"], *t["ln"]), fused_ffn_tolerance),
+             "k4": (A.splash_attention_plain(q, k, v, m, 0.125), splash_forward_tolerance),
+             "k2_dq": (A.flash_attention_bwd_dq_plain(q, k, v, do, t["stats"], t["delta"], m,
+                                                      0.125)[0], 0.002),
+             "k4_dq": (A.splash_attention_bwd_dq_plain(q, k, v, do, t["lse"], t["di"], m),
+                       0.002)}
+    dk, dv = A.flash_attention_bwd_dkv_plain(q, k, v, do, t["stats"], got["k2_delta"], m, 0.125)
+    wants.update(k2_dk=(dk, 0.002), k2_dv=(dv, 0.002))
+    dk, dv = A.splash_attention_bwd_dkv_plain(q, k, v, do, t["lse"], t["di"], m)
+    wants.update(k4_dk=(dk, 0.002), k4_dv=(dv, 0.002))
+    ratios = {}
+    for key, (want, tol) in wants.items():
+        if tol is None:
+            ratios[key] = 0.0 if torch.equal(got[key], want) else float("inf")
+            continue
+        tol = grad_tolerance(torch, want, tol) if isinstance(tol, float) else tol(torch, want)
+        ratios[key] = float(((got[key].float() - want.float()).abs() / tol).max())
+    log("kernels on cuda:1 with device 0 current, max |d|/tol against the plain versions: "
+        + json.dumps(ratios))
+    if not all(r <= 1.0 for r in ratios.values()):
+        raise AssertionError(f"a kernel on cuda:1 disagrees with its plain version: {ratios}")
+    return ratios
+
+
+def mesh_pass(torch, engine, wavs, workdir: pathlib.Path, tag: str):
+    """One file pass of the songs through ``transcribe_file``: (MIDI paths, s)."""
+    from some_tpu_torch.infer import transcribe_file
+
+    t0 = time.perf_counter()
+    paths = [transcribe_file(engine, wav, workdir / f"{tag}-{i}.mid")
+             for i, wav in enumerate(wavs)]
+    for r in engine.replicas:
+        torch.cuda.synchronize(r.device)
+    return paths, time.perf_counter() - t0
+
+
+def mesh_run(torch, workdir: pathlib.Path, setup: dict, one, devices, per_forward) -> tuple:
+    """One serving mesh in default bf16 over ``devices``, from launch counts
+    at 0: built (through ``load_engine(devices=2)`` on two cards, through
+    the engine's ``mesh`` where both replicas share ``cuda:0``), ``prewarm``
+    of the songs' buckets (each replica captures the shard buckets; launches
+    = 2 x per forward x graphs x replicas) and a file pass of the four songs,
+    which captures nothing more. Then: notes against the one engine ``one``
+    (F1 >= 0.95 in bf16: a shard changes cuBLAS's M); warm passes of the one
+    engine and the mesh in turns (RTF, not gated: two replicas on one card
+    share its SMs); the peak reserved GiB the mesh added on each device (its
+    weights, graph pools, staging and warm-ups) and that over its replicas
+    there; an
+    eager bucket run launching each replica's forward; each replica's graph
+    of every bucket holding one forward's hand-written kernels (its kernel
+    nodes). Returns (result, launches)."""
+    from some_tpu_torch.config import load_yaml
+    from some_tpu_torch.infer import load_engine
+    from some_tpu_torch.inference.base_infer import build_inference, set_dispatch
+    from some_tpu_torch.parallel.mesh import make_mesh, pad_rows, split_rows
+    from some_tpu_torch.utils.midi_file import MidiFile, midi_notes_to_arrays
+    from some_tpu_torch.utils.note_f1 import note_f1
+
+    model, wavs, audio_s = workdir / "default-bf16" / "model.pt", setup["wavs"], setup["audio_s"]
+    cards = sorted(set(devices))
+    label = "+".join(devices)
+    torch.cuda.empty_cache()
+    base = {}
+    for card in cards:
+        torch.cuda.reset_peak_memory_stats(torch.device(card))
+        base[card] = torch.cuda.memory_reserved(torch.device(card))
+    reset_counts()
+    t0 = time.perf_counter()
+    if len(cards) == len(devices):
+        mesh = load_engine(model, quiet=True, devices=len(devices))
+    else:
+        mesh = build_inference(load_yaml(model.with_name("config.yaml")), model,
+                               mesh=make_mesh(devices))
+    build_s = time.perf_counter() - t0
+    if [str(r.device) for r in mesh.replicas] != list(devices):
+        raise AssertionError(f"mesh {label}: replicas on {[str(r.device) for r in mesh.replicas]}")
+    t0 = time.perf_counter()
+    n = mesh.prewarm(setup["buckets"])
+    prewarm_s = time.perf_counter() - t0
+    midis, first_s = mesh_pass(torch, mesh, wavs, workdir, f"mesh-{label}-first")
+    launched = read_counts()
+    graphs = [r.graphs_captured for r in mesh.replicas]
+    want = {name: 2 * c * n * len(devices) for name, c in per_forward.items()}
+    if graphs != [n] * len(devices) or launched != {name: want.get(name, 0) for name in launched}:
+        raise AssertionError(f"mesh {label}: graphs {graphs} (prewarm {n}), launches {launched}, "
+                             f"want {want}")
+    one_midis, _ = mesh_pass(torch, one, wavs, workdir, f"mesh-{label}-one")
+    f1 = [note_f1(midi_notes_to_arrays(MidiFile.load(a)), midi_notes_to_arrays(MidiFile.load(b)),
+                  onset_tolerance=0.05, pitch_tolerance=0.5).f1 for a, b in zip(one_midis, midis)]
+    if min(f1) < 0.95:
+        raise AssertionError(f"mesh {label}: note F1 against one engine {f1} below 0.95")
+    warm = {"one": [], "mesh": []}
+    for name in ("one", "mesh", "mesh", "one", "one", "mesh"):
+        warm[name].append(mesh_pass(torch, one if name == "one" else mesh, wavs, workdir,
+                                    f"mesh-{label}-{name}-warm")[1])
+    rtf = {name: audio_s / statistics.median(times) for name, times in warm.items()}
+    peak = {card: (torch.cuda.max_memory_reserved(torch.device(card)) - base[card]) / 2 ** 30
+            for card in cards}
+    per_replica = {card: peak[card] / devices.count(card) for card in cards}
+
+    groups, _ = mesh.bucket_groups(setup["chunks"])
+    set_dispatch(mesh, "eager")
+    reset_counts()
+    mesh.run_bucket(*groups[0][1:])
+    for card in cards:
+        torch.cuda.synchronize(torch.device(card))
+    eager = {name: c for name, c in read_counts().items() if c}
+    if eager != {name: c * len(devices) for name, c in per_forward.items()}:
+        raise AssertionError(f"mesh {label}: an eager bucket run launched {eager}")
+    set_dispatch(mesh, "graph")
+    nodes = []
+    for _, audio, mask in {g[2].shape[1]: g for g in groups}.values():  # one group a bucket
+        shards = zip(*(split_rows(x, len(devices))
+                       for x in pad_rows(audio, mask, len(devices), mesh.wire,
+                                         mask.shape[1] * mesh.hop - 1)))
+        for replica, (a, m) in zip(mesh.replicas, shards):
+            held = hand_written(graph_kernel_nodes(torch, replica, a, m))
+            if held != per_forward:
+                raise AssertionError(f"mesh {label}: {replica.device}'s graph of shard "
+                                     f"{m.shape} holds {held}, want {per_forward}")
+            nodes.append({"device": str(replica.device), "shard": list(m.shape), **held})
+    result = {"devices": list(devices), "build_s": build_s, "prewarm_graphs_per_replica": n,
+              "graphs_per_replica": graphs, "prewarm_s": prewarm_s, "first_s": first_s,
+              "forwards_per_replica": [r.forwards for r in mesh.replicas],
+              "f1_vs_one_engine": f1, "warm_s": warm, "rtf_warm_median": rtf,
+              "peak_reserved_gib": peak, "peak_reserved_gib_per_replica": per_replica,
+              "eager_bucket_launches": eager, "graph_kernel_nodes": nodes,
+              "weight_bytes": mesh.weight_bytes}
+    log(f"mesh {label}: built in {build_s:.2f} s, prewarm {n} shard graphs a replica in "
+        f"{prewarm_s:.2f} s; launches {launched} (captures only); F1 vs one engine {f1}; warm "
+        f"RTF mesh {rtf['mesh']:.2f}x vs one engine {rtf['one']:.2f}x on the same card(s); "
+        f"peak reserved GiB added {peak} ({per_replica} a replica); an eager bucket {eager}; "
+        f"graph kernel nodes {nodes}")
+    del mesh
+    torch.cuda.empty_cache()
+    return result, launched
+
+
+def mesh_f32_bucket(torch, workdir: pathlib.Path, setup: dict, devices) -> dict:
+    """One bucket in 32-true, the songs' group with the most rows, through a
+    mesh over ``devices`` and one engine: every real row's note counts,
+    durations and rests equal, note_midi within 1e-3 (the decode's atomic
+    index_add_)."""
+    from some_tpu_torch.config import load_yaml
+    from some_tpu_torch.infer import load_engine
+    from some_tpu_torch.inference.base_infer import build_inference
+    from some_tpu_torch.parallel.mesh import make_mesh
+
+    model = workdir / "default-32-true" / "model.pt"
+    one = load_engine(model, device="cuda", quiet=True)
+    mesh = build_inference(load_yaml(model.with_name("config.yaml")), model,
+                           mesh=make_mesh(devices))
+    groups, _ = one.bucket_groups(setup["chunks"])
+    jobs, audio, mask = max(groups, key=lambda g: len(g[0]))
+    got = {k: v[:len(jobs)].cpu() for k, v in mesh.run_bucket(audio, mask).items()}
+    want = {k: v[:len(jobs)].cpu() for k, v in one.run_bucket(audio, mask).items()}
+    for key in ("n_notes", "note_dur", "note_rest"):
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"mesh f32 bucket {tuple(mask.shape)}: {key} differs from one "
+                                 "engine's")
+    midi = float((got["note_midi"] - want["note_midi"]).abs().max())
+    if midi > 1e-3:
+        raise AssertionError(f"mesh f32 bucket {tuple(mask.shape)}: note_midi {midi} apart")
+    log(f"mesh f32 bucket {tuple(mask.shape)} over {devices}: {len(jobs)} rows, notes equal "
+        f"(note_midi {midi:.2e} apart)")
+    del one, mesh
+    torch.cuda.empty_cache()
+    return {"bucket": list(mask.shape), "rows": len(jobs), "max_note_midi_diff": midi}
+
+
+def mesh_check(torch, workdir: pathlib.Path, setup: dict):
+    """The serving mesh (the CLIs' ``--devices N``) in default bf16 at
+    production width, on the infer phase's checkpoint and songs: two
+    replicas on ``cuda:0`` (a mesh may repeat a device), and ``cuda:0`` +
+    ``cuda:1`` where two cards exist (``mesh_run`` each), one bucket in
+    32-true (``mesh_f32_bucket``), and, on two cards, every kernel on
+    ``cuda:1`` with device 0 current (``kernels_on_second_card``). Returns
+    (results, {path: launches})."""
+    from some_tpu_torch.infer import load_engine
+
+    blocks = setup["blocks"]
+    per_forward = {"depthwise_conv1d": blocks, "flash_attention": blocks}
+    meshes = [("cuda:0", "cuda:0")]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(("cuda:0", "cuda:1"))
+    else:
+        log("mesh: one card present; the mesh over cuda:0 + cuda:1 and the kernels on cuda:1 "
+            "are not run")
+    one = load_engine(workdir / "default-bf16" / "model.pt", device="cuda", quiet=True)
+    one.prewarm(setup["buckets"])
+    results, launches = {"cards": torch.cuda.device_count()}, {}
+    for devices in meshes:
+        key = "one_card" if devices[0] == devices[1] else "two_cards"
+        results[key], launches[f"mesh_{key}"] = mesh_run(torch, workdir, setup, one, devices,
+                                                         per_forward)
+    del one
+    torch.cuda.empty_cache()
+    results["f32_bucket"] = mesh_f32_bucket(torch, workdir, setup, meshes[-1])
+    if len(meshes) > 1:
+        results["kernels_on_cuda1"] = kernels_on_second_card(torch)
+    return results, launches
+
+
 def sung_songs(seconds, seed: int) -> list:
     """Songs of the given lengths at 44.1 kHz, cut from make_song's melodies."""
     return [make_song(seed + i, phrases=int(s // 6) + 1)[:int(s * SR)]
@@ -3549,8 +3911,9 @@ def main() -> int:
     rows["splash_attention"] = phase("check_splash", check_splash, torch)
     rows.update(phase("check_splash_backward", check_splash_backward, torch))
     report_tensor_core_kernels(rows, hmma)
+    routes = phase("routes", check_routes, torch)
 
-    launches, results = {}, {}
+    launches, results = {}, {"routes": routes}
     results["int8_product"] = phase("int8_product", check_int8_products, torch)
     with tempfile.TemporaryDirectory(prefix="some_tpu_torch_smoke_") as tmp:
         work = pathlib.Path(tmp)
@@ -3584,6 +3947,8 @@ def main() -> int:
         launches["lightning"] = results["lightning"]["launches"]
         results["surfaces"], surface_counts = phase("surfaces", surfaces, torch, work, setup)
         launches.update(surface_counts)
+        results["mesh"], mesh_counts = phase("mesh", mesh_check, torch, work, setup)
+        launches.update(mesh_counts)
         results["binarize"], launches["binarize_train"] = phase("binarize", binarize_check,
                                                                 torch, work)
         results["export"], export_counts = phase("export", export_check, torch, work)
@@ -3648,6 +4013,7 @@ def main() -> int:
                 "shape": head["shape"],
                 "dtype": head["dtype"], "card": card, "shapes": rows[name]}
 
+    results["variant_launches"] = _build.variant_launches()
     print(json.dumps({"train_rest": results["train_rest"], "card": card}), flush=True)
     print(json.dumps(bench_line), flush=True)
     print(json.dumps({"kernels": [entry(*k) for k in kernels]}), flush=True)

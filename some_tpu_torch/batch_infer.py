@@ -20,7 +20,7 @@ from csv import DictReader, DictWriter
 from typing import List
 
 from some_tpu_torch.audio.wavio import load_wav
-from some_tpu_torch.infer import check_devices, load_engine
+from some_tpu_torch.infer import load_engine
 from some_tpu_torch.inference.pipeline import slice_waveform
 from some_tpu_torch.utils.note_names import midi_to_note
 
@@ -167,18 +167,18 @@ def main(argv=None) -> None:
                         help="output transcriptions.csv (default: the dataset's)")
     parser.add_argument("--overwrite", action="store_true", help="overwrite an existing csv")
     parser.add_argument("--devices", type=int, default=1,
-                        help="cards to serve on; the port serves on one")
+                        help="serve over a mesh of N engine replicas (cuda:0..N-1, or N on "
+                             "the CPU with --device cpu)")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; cpu runs the plain versions)")
     args = parser.parse_args(argv)
-    check_devices(args.devices)
 
     data_path = pathlib.Path(args.dataset)
     csv_path = pathlib.Path(args.csv) if args.csv is not None else data_path / "transcriptions.csv"
     if csv_path.exists() and not args.overwrite:
         raise FileExistsError(f"The CSV path '{csv_path}' already exists. Re-try with "
                               "--overwrite.")
-    engine = load_engine(args.model, device=args.device)
+    engine = load_engine(args.model, device=args.device, devices=args.devices)
     config = engine.config
 
     with open(data_path / "transcriptions.csv", "r", encoding="utf8", newline="") as f:

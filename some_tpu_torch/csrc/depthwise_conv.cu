@@ -54,6 +54,12 @@
 
 #include <atomic>
 
+#include "launch_counts.cuh"
+
+// the forward (and dx); the weight gradient's two kernels, counted together
+SOME_LAUNCH_COUNTS(depthwise_conv, "depthwise_fwd_kernel", "depthwise_dw_partial_kernel",
+                   "depthwise_dw_reduce_kernel")
+
 namespace {
 
 constexpr int kChunk = 64;          // channels of one block: two a lane of a warp
@@ -501,7 +507,8 @@ extern "C" int some_depthwise_conv1d_fwd(const void* x, const void* w, void* y, 
   if (int err = check_shape(batch, t_len, channels)) return err;
   if (batch == 0 || t_len == 0 || channels == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SOME_DW_FWD(T, K) launch<T, K>(x, w, y, batch, t_len, channels, flip, s)
+#define SOME_DW_FWD(T, K) \
+  some_counts::counted(0, launch<T, K>(x, w, y, batch, t_len, channels, flip, s))
   SOME_DW_DISPATCH(dtype, taps, SOME_DW_FWD);
 #undef SOME_DW_FWD
 }
@@ -528,7 +535,9 @@ extern "C" int some_depthwise_conv1d_dw(const void* x, const void* g, float* par
   if (int err = check_shape(batch, t_len, channels)) return err;
   if (batch == 0 || t_len == 0 || channels == 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SOME_DW_BWD(T, K) launch_dw<T, K>(x, g, partial, dw, batch, t_len, channels, n_parts, s)
+#define SOME_DW_BWD(T, K) \
+  some_counts::counted(2, some_counts::counted(1, launch_dw<T, K>(x, g, partial, dw, batch, \
+                                                                  t_len, channels, n_parts, s)))
   SOME_DW_DISPATCH(dtype, taps, SOME_DW_BWD);
 #undef SOME_DW_BWD
 }

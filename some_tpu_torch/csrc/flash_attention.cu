@@ -47,6 +47,11 @@
 
 #include "attention_mma.cuh"
 #include "flash_common.cuh"
+#include "launch_counts.cuh"
+
+// variant 2 * dtype + (stats != null)
+SOME_LAUNCH_COUNTS(flash_attention, "flash_fwd_kernel", "flash_fwd_stats_kernel",
+                   "flash_fwd_mma_kernel", "flash_fwd_stats_mma_kernel")
 
 namespace {
 
@@ -579,12 +584,15 @@ int forward(const void* q, const void* k, const void* v, const void* mask, void*
   const Strides qs = strides_of(q_strides), ks = strides_of(k_strides);
   const Strides vs_ = strides_of(v_strides), os = strides_of(o_strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int variant = 2 * dtype + (stats != nullptr);
   if (dtype == 0)
-    return dispatch_head_dim<float>(head_dim, q, k, v, mask, out, stats, batch, heads, t_len, qs,
-                                    ks, vs_, os, scale, s);
+    return some_counts::counted(variant, dispatch_head_dim<float>(head_dim, q, k, v, mask, out,
+                                                                  stats, batch, heads, t_len, qs,
+                                                                  ks, vs_, os, scale, s));
   if (dtype == 1)
-    return dispatch_head_dim<__nv_bfloat16>(head_dim, q, k, v, mask, out, stats, batch, heads,
-                                            t_len, qs, ks, vs_, os, scale, s);
+    return some_counts::counted(
+        variant, dispatch_head_dim<__nv_bfloat16>(head_dim, q, k, v, mask, out, stats, batch,
+                                                  heads, t_len, qs, ks, vs_, os, scale, s));
   return cudaErrorInvalidValue;
 }
 

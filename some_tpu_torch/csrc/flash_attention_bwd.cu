@@ -59,6 +59,11 @@
 
 #include "attention_mma.cuh"
 #include "flash_common.cuh"
+#include "launch_counts.cuh"
+
+// variant 2 * dtype + which (0 = dk/dv, 1 = dq)
+SOME_LAUNCH_COUNTS(flash_attention_bwd, "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
+                   "flash_bwd_dkv_mma_kernel", "flash_bwd_dq_mma_kernel")
 
 namespace {
 
@@ -614,10 +619,15 @@ int backward(int which, int head_dim, int dtype, const Args& a) {
   if (a.batch < 0 || a.heads < 0 || a.t_len < 0 || a.batch > 65535 || a.heads > 65535)
     return cudaErrorInvalidValue;
   if (a.batch == 0 || a.heads == 0 || a.t_len == 0) return cudaSuccess;
-  if (dtype == 0 && head_dim == 64) return launch_one<float, 64>(which, a);
-  if (dtype == 0 && head_dim == 32) return launch_one<float, 32>(which, a);
-  if (dtype == 1 && head_dim == 64) return launch_one<__nv_bfloat16, 64>(which, a);
-  if (dtype == 1 && head_dim == 32) return launch_one<__nv_bfloat16, 32>(which, a);
+  const int variant = 2 * dtype + which;
+  if (dtype == 0 && head_dim == 64)
+    return some_counts::counted(variant, launch_one<float, 64>(which, a));
+  if (dtype == 0 && head_dim == 32)
+    return some_counts::counted(variant, launch_one<float, 32>(which, a));
+  if (dtype == 1 && head_dim == 64)
+    return some_counts::counted(variant, launch_one<__nv_bfloat16, 64>(which, a));
+  if (dtype == 1 && head_dim == 32)
+    return some_counts::counted(variant, launch_one<__nv_bfloat16, 32>(which, a));
   return cudaErrorInvalidValue;
 }
 

@@ -55,6 +55,10 @@
 #include <type_traits>
 
 #include "attention_mma.cuh"
+#include "launch_counts.cuh"
+
+// variant dtype
+SOME_LAUNCH_COUNTS(fused_ffn, "fused_ffn_kernel", "fused_ffn_mma_kernel")
 
 namespace {
 
@@ -752,10 +756,11 @@ extern "C" int some_fused_ln_ffn_residual(const void* x, const float* gamma, con
   if (n_rows == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_width<float>(dim, x, gamma, beta, w1t, b1, w2t, b2, out, n_rows, hidden, eps,
-                                 res_scale, s);
+    return some_counts::counted(0, dispatch_width<float>(dim, x, gamma, beta, w1t, b1, w2t, b2,
+                                                         out, n_rows, hidden, eps, res_scale, s));
   if (dtype == 1)
-    return dispatch_width<__nv_bfloat16>(dim, x, gamma, beta, w1t, b1, w2t, b2, out, n_rows,
-                                         hidden, eps, res_scale, s);
+    return some_counts::counted(
+        1, dispatch_width<__nv_bfloat16>(dim, x, gamma, beta, w1t, b1, w2t, b2, out, n_rows,
+                                         hidden, eps, res_scale, s));
   return cudaErrorInvalidValue;
 }

@@ -33,7 +33,11 @@
 #include <type_traits>
 
 #include "attention_mma.cuh"
+#include "launch_counts.cuh"
 #include "splash_common.cuh"
+
+// variant dtype
+SOME_LAUNCH_COUNTS(splash_attention, "splash_fwd_kernel", "splash_fwd_mma_kernel")
 
 namespace {
 
@@ -328,16 +332,18 @@ extern "C" int some_splash_attention_fwd(const void* q, const void* k, const voi
   const Strides vs_ = strides_of(v_strides), os = strides_of(o_strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64)
-    return launch<float, 64>(q, k, v, mask, out, lse, out_lo, batch, heads, t_len, qs, ks, vs_, os,
-                             s);
+    return some_counts::counted(0, launch<float, 64>(q, k, v, mask, out, lse, out_lo, batch,
+                                                     heads, t_len, qs, ks, vs_, os, s));
   if (dtype == 0 && head_dim == 32)
-    return launch<float, 32>(q, k, v, mask, out, lse, out_lo, batch, heads, t_len, qs, ks, vs_, os,
-                             s);
+    return some_counts::counted(0, launch<float, 32>(q, k, v, mask, out, lse, out_lo, batch,
+                                                     heads, t_len, qs, ks, vs_, os, s));
   if (dtype == 1 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, mask, out, lse, out_lo, batch, heads, t_len, qs, ks,
-                                     vs_, os, s);
+    return some_counts::counted(1, launch<__nv_bfloat16, 64>(q, k, v, mask, out, lse, out_lo,
+                                                             batch, heads, t_len, qs, ks, vs_,
+                                                             os, s));
   if (dtype == 1 && head_dim == 32)
-    return launch<__nv_bfloat16, 32>(q, k, v, mask, out, lse, out_lo, batch, heads, t_len, qs, ks,
-                                     vs_, os, s);
+    return some_counts::counted(1, launch<__nv_bfloat16, 32>(q, k, v, mask, out, lse, out_lo,
+                                                             batch, heads, t_len, qs, ks, vs_,
+                                                             os, s));
   return cudaErrorInvalidValue;
 }

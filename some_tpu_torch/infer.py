@@ -5,17 +5,20 @@ port's own (``torch.save``), a native SOME-TPU msgpack checkpoint, or a
 reference Lightning ``.ckpt``; its ``config.yaml`` sits beside it. Runs on
 the GPU unless ``--device cpu``. ``--quantize int8`` serves the int8 model
 (``ops/quant.py``), ``--wire-sr`` sends the audio to the card decimated to
-that rate. The JAX CLI's ``--devices N`` (a data-parallel mesh) has no
-counterpart on one card: above 1 it raises (``check_devices``), here and in
-every serving surface of the port.
+that rate. ``--devices N`` serves over a mesh of N engine replicas, as the
+JAX CLI's data-parallel mesh does (``make_serving_mesh``): ``cuda:0`` to
+``cuda:N-1``, or N replicas on the CPU with ``--device cpu``; above the
+cards present it raises.
 
     python -m some_tpu_torch.infer --model CKPT --wav in.wav [--midi out.mid]
-        [--quantize none|int8] [--wire-sr 22050] [--device cpu]
+        [--quantize none|int8] [--wire-sr 22050] [--devices N] [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
 import pathlib
+
+import torch
 
 from some_tpu_torch.audio.wavio import load_wav
 from some_tpu_torch.config import load_yaml, print_config
@@ -23,13 +26,25 @@ from some_tpu_torch.inference.base_infer import build_inference
 from some_tpu_torch.inference.pipeline import transcribe_waveform
 
 
-def check_devices(devices: int) -> None:
-    """Refuse the JAX CLIs' ``--devices N`` above 1: the port serves on one
-    card."""
-    if devices > 1:
-        raise NotImplementedError(
-            f"--devices {devices}: serving over several cards (the JAX CLIs' data-parallel "
-            "mesh) is not ported; some_tpu_torch serves on one card")
+def make_serving_mesh(devices: int, device=None):
+    """The mesh of the CLIs' ``--devices N``: None for 1 (one engine on
+    ``device``); above 1, ``cuda:0`` .. ``cuda:N-1`` (``device`` None or
+    ``cuda``), raising when fewer cards are present (``make_mesh``), or N
+    replicas on the CPU (``device`` ``cpu``), as the JAX CLIs serve over
+    ``make_mesh(jax.devices()[:N])``."""
+    from some_tpu_torch.parallel.mesh import make_mesh
+
+    if devices < 1:
+        raise ValueError(f"--devices {devices}: want at least 1")
+    if devices == 1:
+        return None
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cpu":
+        return make_mesh(["cpu"] * devices)
+    if device.type != "cuda" or device.index not in (None, 0):
+        raise ValueError(f"--devices {devices} serves on cuda:0 .. cuda:{devices - 1} or on the "
+                         f"CPU, not on {device}")
+    return make_mesh(range(devices))
 
 
 def parse_buckets(text: str | None) -> list:
@@ -38,10 +53,13 @@ def parse_buckets(text: str | None) -> list:
 
 
 def load_engine(model_path: pathlib.Path | str, device=None, quiet: bool = False,
-                quantize: str | None = None, wire_sr: int | None = None, **engine_kwargs):
+                quantize: str | None = None, wire_sr: int | None = None, devices: int = 1,
+                **engine_kwargs):
     """The inference engine for a checkpoint and the config.yaml beside it;
-    ``quantize`` and ``wire_sr`` override the config's keys, and
+    ``quantize`` and ``wire_sr`` override the config's keys, ``devices``
+    above 1 serves over ``make_serving_mesh(devices, device)``, and
     ``engine_kwargs`` (``max_batch_chunks``, ``dtype``) go to the engine."""
+    mesh = make_serving_mesh(devices, device)
     model_path = pathlib.Path(model_path)
     config = load_yaml(model_path.with_name("config.yaml"))
     if quantize is not None:
@@ -50,6 +68,8 @@ def load_engine(model_path: pathlib.Path | str, device=None, quiet: bool = False
         config["wire_sr"] = wire_sr
     if not quiet:
         print_config(config)
+    if mesh is not None:
+        return build_inference(config, model_path, mesh=mesh, **engine_kwargs)
     return build_inference(config, model_path, device=device, **engine_kwargs)
 
 
@@ -75,13 +95,13 @@ def main(argv=None) -> None:
     parser.add_argument("--wire-sr", type=int, default=None,
                         help="decimate the audio sent to the device to this rate (e.g. 22050)")
     parser.add_argument("--devices", type=int, default=1,
-                        help="cards to serve on; the port serves on one")
+                        help="serve over a mesh of N engine replicas (cuda:0..N-1, or N on "
+                             "the CPU with --device cpu)")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; cpu runs the plain versions)")
     args = parser.parse_args(argv)
-    check_devices(args.devices)
     engine = load_engine(args.model, device=args.device, quantize=args.quantize,
-                         wire_sr=args.wire_sr)
+                         wire_sr=args.wire_sr, devices=args.devices)
     midi_path = transcribe_file(engine, args.wav, args.midi, args.tempo)
     print(f"MIDI file saved at: '{midi_path}'")
 

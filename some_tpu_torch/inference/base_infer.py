@@ -30,6 +30,17 @@ Dispatch, as the JAX engine's:
   ``auto``, a policy re-probed on a TTL) and the half-rate wire
   (``wire_sr``): a wire flip rebuilds the mel frontend and drops every
   captured graph.
+* **A serving mesh** (``mesh``, ``parallel/mesh.py``), as the JAX engine's
+  ``data`` axis: one replica per device of the mesh, each a whole engine on
+  its device (its model copy, mel frontend, streams, graphs keyed by
+  (wire, shard rows, frames) and graph pool); the engine itself is replica
+  0. A bucket's rows are padded to a multiple of the mesh size with wire
+  silence and split into equal contiguous shards, one a replica; every
+  replica is launched before any output is waited on, and the outputs come
+  back as one dict on the first replica's device, rows in the caller's
+  order (the padding rows last, decoding to no notes). One wire policy
+  serves the mesh: probed on the first device, flipped on every replica at
+  once.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit device it raises rather than fall back.
@@ -48,7 +59,9 @@ import torch
 
 from some_tpu_torch.audio.wire import check_wire, encode_wire, silence_buffer
 from some_tpu_torch.nn.model import build_midi_extractor
+from some_tpu_torch.ops._build import on_device
 from some_tpu_torch.ops.quant import adopt_int8_layout, quantize_params
+from some_tpu_torch.parallel.mesh import pad_rows, split_rows
 from some_tpu_torch.utils.checkpoint import load_state_dict
 
 DEFAULT_BUCKETS = (128, 192, 256, 384, 512, 768, 1024, 1536, 2048, 3072, 4096,
@@ -98,11 +111,12 @@ def set_dispatch(engine: "BaseInference", mode: str) -> None:
     """Test-only switch: 'graph' (the default) replays one CUDA graph per
     bucket on the card from a bucket's second run on, 'eager' launches the
     pipeline op by op there on every run (to hold the two against each
-    other). The CPU always runs eagerly; no config key or CLI flag reads
-    this."""
+    other), on every replica of the engine. The CPU always runs eagerly; no
+    config key or CLI flag reads this."""
     if mode not in ("graph", "eager"):
         raise ValueError(f"unknown dispatch {mode!r} (graph | eager)")
-    engine._graph_dispatch = mode == "graph"
+    for replica in engine.replicas:
+        replica._graph_dispatch = mode == "graph"
 
 
 class BaseInference:
@@ -117,7 +131,15 @@ class BaseInference:
 
     def __init__(self, config: dict, model_path: pathlib.Path | str | None,
                  dtype: torch.dtype | None = None, max_batch_chunks: int = 8,
-                 device=None, state_dict: Dict[str, torch.Tensor] | None = None):
+                 device=None, state_dict: Dict[str, torch.Tensor] | None = None,
+                 mesh=None):
+        """``mesh`` (``parallel.mesh.make_mesh``) serves over its devices, the
+        engine on the first (``device``, if given, must be that one)."""
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first device "
+                                 f"{mesh.devices[0]}")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         self.config = config
         self.model_path = model_path
@@ -166,6 +188,27 @@ class BaseInference:
         if state_dict is None:
             state_dict = load_state_dict(model_path)
         self._load_weights(state_dict)
+        # the other replicas: whole engines on the mesh's other devices, one
+        # state dict filling them all
+        self._peers = () if mesh is None else tuple(
+            self._replica(d, state_dict) for d in mesh.devices[1:])
+
+    def _replica(self, device: torch.device, state_dict) -> "BaseInference":
+        """A whole engine on ``device`` serving this one's mesh: built with
+        this engine's wire pinned, so it never probes the link, then given
+        this engine's base config and decision, so that the one policy,
+        probed and re-probed here, flips it with the rest."""
+        config = dict(self._wire_base_config, transfer_dtype=self.wire)
+        if self._auto_wire_sr:
+            config["wire_sr"] = self._auto_wire_sr
+        peer = type(self)(config, self.model_path, dtype=self.dtype,
+                          max_batch_chunks=self.max_batch_chunks, device=device,
+                          state_dict=state_dict)
+        peer._wire_base_config = dict(self._wire_base_config)
+        peer.config = dict(self.config)
+        peer.wire_decision = self.wire_decision
+        peer._auto_wire_sr = self._auto_wire_sr
+        return peer
 
     def _load_weights(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Fill the model. With ``quantize: int8`` the weights are quantized
@@ -185,12 +228,19 @@ class BaseInference:
             quantize_params(self.model)
 
     @property
+    def replicas(self) -> tuple:
+        """The engines a bucket runs on, in mesh order: this engine, then one
+        per other device of its mesh (this engine alone without a mesh)."""
+        return (self, *self._peers)
+
+    @property
     def weight_bytes(self) -> int:
-        """Bytes of the model's weights resident on the engine's device
-        (parameters and buffers: int8 weights and their scales once
-        quantized; the f32 master weights otherwise, whatever the compute
-        dtype, as in the JAX engine)."""
-        return sum(t.numel() * t.element_size() for t in self.model.state_dict().values())
+        """Bytes of the model's weights resident on the engine's devices, on
+        every replica (parameters and buffers: int8 weights and their scales
+        once quantized; the f32 master weights otherwise, whatever the
+        compute dtype, as in the JAX engine)."""
+        return sum(t.numel() * t.element_size()
+                   for r in self.replicas for t in r.model.state_dict().values())
 
     @classmethod
     def from_state_dict(cls, config: dict, state_dict: Dict[str, torch.Tensor], **kwargs):
@@ -301,8 +351,9 @@ class BaseInference:
         self._auto_wire_sr = wire_sr
         self._record_wire_decision(mb_s, wire)
         if (wire, wire_sr) != previous:
-            self._set_wire(wire, wire_sr)
-            self._rebuild_wire_pipeline()
+            for replica in self.replicas:
+                replica._set_wire(wire, wire_sr)
+                replica._rebuild_wire_pipeline()
 
     # ---- dispatch ----
 
@@ -317,12 +368,30 @@ class BaseInference:
         and a non-blocking copy on the staging stream; ``ready`` is the
         event recorded after it (None on the CPU). The pinned blocks come
         from PyTorch's caching host allocator, which reuses a block only
-        once the copy's event has completed."""
+        once the copy's event has completed.
+
+        With a mesh of several devices the rows are padded to a multiple of
+        its size (``pad_rows``) and split into one shard a replica
+        (``split_rows``),
+        each staged by its replica on its device: audio, mask and ready are
+        then tuples with one entry a replica, in mesh order."""
+        replicas = self.replicas
+        if len(replicas) == 1:
+            return self._stage(audio, frame_mask)
+        n = len(replicas)
+        audio, frame_mask = pad_rows(audio, frame_mask, n, self.wire,
+                                     frame_mask.shape[1] * self.hop - 1)
+        staged = [r._stage(a, m) for r, a, m in
+                  zip(replicas, split_rows(audio, n), split_rows(frame_mask, n))]
+        return tuple(zip(*staged))
+
+    def _stage(self, audio: np.ndarray, frame_mask: np.ndarray):
+        """``stage_inputs`` on this engine's own device."""
         if self.device.type != "cuda":
             return (torch.from_numpy(audio).to(self.device),
                     torch.from_numpy(frame_mask).to(self.device), None)
         staging = self._streams[0]
-        with torch.cuda.stream(staging):
+        with on_device(self.device.index), torch.cuda.stream(staging):
             audio_dev = torch.from_numpy(audio).pin_memory().to(self.device, non_blocking=True)
             mask_dev = torch.from_numpy(frame_mask).pin_memory().to(self.device,
                                                                    non_blocking=True)
@@ -331,41 +400,67 @@ class BaseInference:
         return audio_dev, mask_dev, ready
 
     @torch.inference_mode()
-    def run_bucket_staged(self, audio: torch.Tensor, mask: torch.Tensor, ready=None,
-                          frames: bool = False, capture: bool = False) -> dict:
+    def run_bucket_staged(self, audio, mask, ready=None, frames: bool = False,
+                          capture: bool = False) -> dict:
         """Run the pipeline on staged device inputs (``stage_inputs``, or
         tensors already on the device with ``ready`` None). On the card this
         replays the bucket's graph, capturing it on the bucket's
         ``CAPTURE_ON_VISIT``-th run (at once with ``capture``), and returns
         device copies of its outputs; ``frames=True`` adds the frame-level
-        outputs (FRAME_KEYS)."""
+        outputs (FRAME_KEYS).
+
+        With a mesh of several devices, audio and mask (and ready, unless
+        None) hold one shard a replica. Each replica runs its shard with its
+        device current; all are launched before any output is waited on.
+        The outputs are gathered on the first replica's device in mesh
+        order, which is the caller's row order: a replica on another card is
+        copied from behind its replay, since a copy between cards runs on the
+        source card's current stream (the replica's compute stream) and the
+        first card's current stream waits for it, with no device
+        synchronised."""
+        replicas = self.replicas
+        if len(replicas) == 1:
+            return self._run(audio, mask, ready, frames, capture)
+        readies = (None,) * len(replicas) if ready is None else ready
+        outs = [r._run(a, m, e, frames, capture)
+                for r, a, m, e in zip(replicas, audio, mask, readies)]
+        return {k: torch.cat([out[k].to(self.device) for out in outs]) for k in outs[0]}
+
+    @torch.inference_mode()
+    def _run(self, audio: torch.Tensor, mask: torch.Tensor, ready, frames: bool,
+             capture: bool) -> dict:
+        """``run_bucket_staged`` on this engine's own device, made current."""
         keys = self.OUTPUT_KEYS + (self.FRAME_KEYS if frames else ())
-        if self.device.type == "cuda":
+        if self.device.type != "cuda":
+            out = self._device_pipeline(audio, mask)
+            self.forwards += 1
+            return {k: out[k] for k in keys}
+        with on_device(self.device.index):
             compute = torch.cuda.current_stream(self.device)
             if ready is not None:
                 compute.wait_event(ready)
             # the staged tensors were allocated on the staging stream
             audio.record_stream(compute)
             mask.record_stream(compute)
-        entry = None
-        if self.device.type == "cuda" and self._graph_dispatch:
-            key = (self.wire, *mask.shape)
-            entry = self._graphs.get(key)
+            entry = None
+            if self._graph_dispatch:
+                key = (self.wire, *mask.shape)
+                entry = self._graphs.get(key)
+                if entry is None:
+                    visit = self._visits[key] = self._visits.get(key, 0) + 1
+                    if capture or visit >= self.CAPTURE_ON_VISIT:
+                        entry = self._capture(audio.shape, audio.dtype, mask.shape)
             if entry is None:
-                visit = self._visits[key] = self._visits.get(key, 0) + 1
-                if capture or visit >= self.CAPTURE_ON_VISIT:
-                    entry = self._capture(audio.shape, audio.dtype, mask.shape)
-        if entry is None:
-            out = self._device_pipeline(audio, mask)
+                out = self._device_pipeline(audio, mask)
+                self.forwards += 1
+                return {k: out[k] for k in keys}
+            entry.audio.copy_(audio)
+            entry.mask.copy_(mask)
+            entry.graph.replay()
             self.forwards += 1
-            return {k: out[k] for k in keys}
-        entry.audio.copy_(audio)
-        entry.mask.copy_(mask)
-        entry.graph.replay()
-        self.forwards += 1
-        # another replay writes these static outputs, or memory of the
-        # shared pool that they lie in: hand back copies
-        return {k: entry.out[k].clone() for k in keys}
+            # another replay writes these static outputs, or memory of the
+            # shared pool that they lie in: hand back copies
+            return {k: entry.out[k].clone() for k in keys}
 
     def _capture(self, audio_shape, audio_dtype, mask_shape) -> _BucketGraph:
         """Capture the pipeline of one (wire, rows, frames) bucket. One
@@ -414,6 +509,9 @@ class BaseInference:
 
     @property
     def graphs_captured(self) -> int:
+        """Graphs captured on this engine's device; with a mesh every
+        replica captures the same shard buckets, and keeps its own count
+        (as it keeps its own ``forwards``)."""
         return len(self._graphs)
 
     def run_bucket(self, audio: np.ndarray, frame_mask: np.ndarray) -> dict:
@@ -545,14 +643,20 @@ class BaseInference:
         the graphs' shared pool then holds the largest working set's
         segments, and each smaller capture fits in their free blocks rather
         than add segments of its own. ``workers > 1`` runs them from that
-        many threads; captures still go one at a time."""
+        many threads; captures still go one at a time.
+
+        With a mesh a program is a shard bucket: a row bucket padded to a
+        multiple of the mesh size, split over the replicas; each replica
+        captures its (shard rows, frames) graph, and the count is per
+        replica."""
+        n = len(self.replicas)
         programs = []
         for n_frames in frame_buckets:
             if n_frames not in self.frame_buckets:
                 raise ValueError(f"{n_frames} is not a frame bucket (have {self.frame_buckets})")
             done = set()
             for r in rows:
-                r = pick_batch_bucket(r, min(self.max_batch_chunks, max(rows)))
+                r = -(-pick_batch_bucket(r, min(self.max_batch_chunks, max(rows))) // n)
                 if r not in done:
                     done.add(r)
                     programs.append((r, n_frames))
@@ -560,6 +664,7 @@ class BaseInference:
 
         def warm_one(shape):
             r, n_frames = shape
+            r *= n  # one shard of r rows a replica
             audio = silence_buffer(self.wire, r, n_frames * self.hop - 1)
             mask = np.zeros((r, n_frames), dtype=bool)
             staged = self.stage_inputs(audio, mask)

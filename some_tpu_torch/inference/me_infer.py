@@ -4,7 +4,8 @@ Counterpart of ``some_tpu/inference/me_infer.py``. Everything from the wire
 array to the fixed-shape note arrays runs on the engine's device, on the card
 as one CUDA graph per bucket (``base_infer``); the host slices each row to
 its note count (``assemble``) and repairs the seams of split chunks
-(``merge_parts``).
+(``merge_parts``). On a serving mesh each replica is an engine of this class
+on its device, with its own mel frontend.
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@ rest class 128.
 Counterpart of ``some_tpu/inference/me_quant_infer.py`` (the model of
 ``configs/discrete.yaml``, ``task_cls: training.QuantizedMIDIExtractionTask``).
 The engine is the continuous one's: its device pipeline, this forward and
-this decode included, is one CUDA graph per bucket on the card.
+this decode included, is one CUDA graph per bucket on the card, and on a
+serving mesh each replica is an engine of this class.
 """
 from __future__ import annotations
 

@@ -13,6 +13,7 @@ at import time: the CPU tests import every module of the port.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -96,6 +97,51 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _loaded[name] = lib
         return lib
+
+
+def on_device(device: int):
+    """A context in which CUDA device ``device`` is current, switched only
+    when another device is current, so one card pays no extra CUDA call.
+    Each launcher's ``cudaFuncSetAttribute``, K1's residency cache and a
+    launch itself act on the current device, and a CUDA graph captures
+    there, while the tensors and the stream belong to their own device: a
+    replica on ``cuda:1`` run with device 0 current would fail or plan for
+    the wrong card."""
+    import torch
+
+    if torch.cuda.current_device() == device:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def launch(device: int, fn, *args) -> int:
+    """Call the C entry point ``fn`` with CUDA device ``device`` (the index
+    of the tensors it launches on) current, as ``on_device`` makes it, and
+    return its result."""
+    with on_device(device):
+        return fn(*args)
+
+
+def variant_launches(names: Iterable[str] = SOURCES) -> Dict[str, int]:
+    """Launches so far of each kernel variant of the loaded libraries among
+    ``names``, by the variant's kernel name, from each library's own table
+    (``csrc/launch_counts.cuh``): which variant a wrapper's call ran (the
+    tensor-core kernel or the CUDA-core one), with no profiler in between. A
+    library not loaded yet has launched nothing and is left out."""
+    counts = {}
+    for name in names:
+        lib = _loaded.get(name)
+        if lib is None:
+            continue
+        variant = getattr(lib, f"some_{name}_variant")
+        variant.restype, variant.argtypes = ctypes.c_char_p, [ctypes.c_int]
+        launches = getattr(lib, f"some_{name}_variant_launches")
+        launches.restype, launches.argtypes = ctypes.c_longlong, [ctypes.c_int]
+        i = 0
+        while (kernel := variant(i)) is not None:
+            counts[kernel.decode()] = launches(i)
+            i += 1
+    return counts
 
 
 def check(err: int, what: str) -> None:

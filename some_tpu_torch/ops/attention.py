@@ -146,7 +146,8 @@ def _launch(q, k, v, mask, scale):
     q, k, v = (_last_contiguous(t) for t in (q, k, v))
     out = _bhtd_like(q)
     _build.check_rows_aligned("flash_attention", q, k, v, out)
-    err = _fn("some_flash_attention_fwd", 5, 4)(
+    err = _build.launch(
+        q.get_device(), _fn("some_flash_attention_fwd", 5, 4),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(mask), out.data_ptr(),
         B, H, T, D, _strides(q), _strides(k), _strides(v), _strides(out),
         float(scale), _DTYPE_CODES[q.dtype], _stream(q))
@@ -165,7 +166,8 @@ def flash_attention_fwd_res(q, k, v, mask, scale):
     out = _bhtd_like(q)
     _build.check_rows_aligned("flash_attention_fwd_res", q, k, v, out)
     stats = torch.empty((B, H, T, 2), dtype=torch.float32, device=q.device)
-    err = _fn("some_flash_attention_fwd_stats", 6, 4)(
+    err = _build.launch(
+        q.get_device(), _fn("some_flash_attention_fwd_stats", 6, 4),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(mask), out.data_ptr(),
         stats.data_ptr(), B, H, T, D, _strides(q), _strides(k), _strides(v),
         _strides(out), float(scale), _DTYPE_CODES[q.dtype], _stream(q))
@@ -237,7 +239,8 @@ def flash_attention_bwd_dkv(q, k, v, dout, stats, delta, mask, scale):
     _build.check_rows_aligned("flash_attention_bwd_dkv", q, k, v, dout)
     B, H, T, D = q.shape
     dk, dv = _bhtd_like(q), _bhtd_like(q)
-    err = _fn("some_flash_attention_bwd_dkv", 9, 6)(
+    err = _build.launch(
+        q.get_device(), _fn("some_flash_attention_bwd_dkv", 9, 6),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
         delta.data_ptr(), _mask_ptr(mask), dk.data_ptr(), dv.data_ptr(), B, H, T, D,
         _strides(q), _strides(k), _strides(v), _strides(dout), _strides(dk), _strides(dv),
@@ -256,7 +259,8 @@ def flash_attention_bwd_dq(q, k, v, dout, stats, delta, mask, scale):
     dq = _bhtd_like(q)
     _build.check_rows_aligned("flash_attention_bwd_dq", q, k, v, dout, dq)
     delta_out = torch.empty_like(delta)
-    err = _fn("some_flash_attention_bwd_dq", 9, 5)(
+    err = _build.launch(
+        q.get_device(), _fn("some_flash_attention_bwd_dq", 9, 5),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
         delta.data_ptr(), _mask_ptr(mask), dq.data_ptr(), delta_out.data_ptr(), B, H, T, D,
         _strides(q), _strides(k), _strides(v), _strides(dout), _strides(dq),
@@ -368,7 +372,8 @@ def _splash_forward(qs, k, v, mask, counter):
     training = counter is splash_attention_fwd_res
     lse = torch.empty((B, H, T), dtype=torch.float32, device=qs.device) if training else None
     out_lo = _bhtd_like(qs) if training and qs.dtype == torch.bfloat16 else None
-    err = _fn("some_splash_attention_fwd", 7, 4)(
+    err = _build.launch(
+        qs.get_device(), _fn("some_splash_attention_fwd", 7, 4),
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(mask), out.data_ptr(),
         None if lse is None else lse.data_ptr(), None if out_lo is None else out_lo.data_ptr(),
         B, H, T, D, _strides(qs), _strides(k), _strides(v), _strides(out),
@@ -439,7 +444,8 @@ def splash_attention_bwd_dkv(qs, k, v, dout, lse, di, mask):
     B, H, T, D = qs.shape
     dk, dv = _bhtd_like(qs), _bhtd_like(qs)
     _build.check_rows_aligned("splash_attention_bwd_dkv", qs, k, v, dout, dk, dv)
-    err = _fn("some_splash_attention_bwd_dkv", 9, 6)(
+    err = _build.launch(
+        qs.get_device(), _fn("some_splash_attention_bwd_dkv", 9, 6),
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         di.data_ptr(), _mask_ptr(mask), dk.data_ptr(), dv.data_ptr(), B, H, T, D,
         _strides(qs), _strides(k), _strides(v), _strides(dout), _strides(dk), _strides(dv),
@@ -455,7 +461,8 @@ def splash_attention_bwd_dq(qs, k, v, dout, lse, di, mask):
     B, H, T, D = qs.shape
     dq = _bhtd_like(qs)
     _build.check_rows_aligned("splash_attention_bwd_dq", qs, k, v, dout, dq)
-    err = _fn("some_splash_attention_bwd_dq", 8, 5)(
+    err = _build.launch(
+        qs.get_device(), _fn("some_splash_attention_bwd_dq", 8, 5),
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         di.data_ptr(), _mask_ptr(mask), dq.data_ptr(), B, H, T, D,
         _strides(qs), _strides(k), _strides(v), _strides(dout), _strides(dq),

@@ -103,8 +103,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor, counter, flip: bool = False) -> to
     fn = _library().some_depthwise_conv1d_fwd
     B, T, C = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), B, T, C, w.shape[0],
-             _DTYPE_CODES[x.dtype], int(flip), stream)
+    err = _build.launch(x.get_device(), fn, x.data_ptr(), w.data_ptr(), y.data_ptr(), B, T, C,
+                        w.shape[0], _DTYPE_CODES[x.dtype], int(flip), stream)
     _build.check(err, "depthwise_conv1d")
     counter.launches += 1
     return y
@@ -146,8 +146,9 @@ def depthwise_conv1d_dw(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tenso
     partial = torch.empty((n_parts, k, C), dtype=torch.float32, device=x.device)
     dw = torch.empty((k, C), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _library().some_depthwise_conv1d_dw(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                                              dw.data_ptr(), B, T, C, k, code, n_parts, stream)
+    err = _build.launch(x.get_device(), _library().some_depthwise_conv1d_dw, x.data_ptr(),
+                        g.data_ptr(), partial.data_ptr(), dw.data_ptr(), B, T, C, k, code,
+                        n_parts, stream)
     _build.check(err, "depthwise_conv1d_dw")
     depthwise_conv1d_dw.launches += 1
     return dw

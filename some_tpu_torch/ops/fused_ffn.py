@@ -92,10 +92,11 @@ def _launch(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, res_scale):
     _build.check_rows_aligned("fused_ln_ffn_residual", x2, w1t, w2t)
     vecs = [t.float().contiguous() for t in (ln_scale, ln_bias, b1, b2)]
     out = torch.empty(shape, dtype=x.dtype, device=x.device)  # [N, D] rows, contiguous
-    err = _kernel()(x2.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), w1t.data_ptr(),
-                    vecs[2].data_ptr(), w2t.data_ptr(), vecs[3].data_ptr(), out.data_ptr(),
-                    x2.shape[0], D, w1.shape[-1], float(eps), float(res_scale),
-                    _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    err = _build.launch(x.get_device(), _kernel(), x2.data_ptr(), vecs[0].data_ptr(),
+                        vecs[1].data_ptr(), w1t.data_ptr(), vecs[2].data_ptr(), w2t.data_ptr(),
+                        vecs[3].data_ptr(), out.data_ptr(), x2.shape[0], D, w1.shape[-1],
+                        float(eps), float(res_scale), _DTYPE_CODES[x.dtype],
+                        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_ln_ffn_residual")
     fused_ln_ffn_residual.launches += 1
     return out

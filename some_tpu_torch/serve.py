@@ -35,7 +35,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from some_tpu_torch.audio.wavio import load_wav
-from some_tpu_torch.infer import check_devices, load_engine, parse_buckets
+from some_tpu_torch.infer import load_engine, parse_buckets
 from some_tpu_torch.inference.pipeline import MAX_DURATION_SEC, segments_to_json, slice_waveform
 from some_tpu_torch.utils.midi_file import build_midi_file
 
@@ -354,7 +354,8 @@ def main(argv=None) -> None:
     parser.add_argument("--port", type=int, default=8572)
     parser.add_argument("--addr", default="0.0.0.0")
     parser.add_argument("--devices", type=int, default=1,
-                        help="cards to serve on; the port serves on one")
+                        help="serve over a mesh of N engine replicas (cuda:0..N-1, or N on "
+                             "the CPU with --device cpu)")
     parser.add_argument("--max-wait-ms", type=float, default=25.0,
                         help="micro-batching window: how long the dispatcher waits to fill a "
                              "batch after the first request arrives")
@@ -374,9 +375,9 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; cpu runs the plain versions)")
     args = parser.parse_args(argv)
-    check_devices(args.devices)
     engine = load_engine(pathlib.Path(args.model), device=args.device, quiet=True,
-                         wire_sr=args.wire_sr, max_batch_chunks=args.max_batch_chunks)
+                         wire_sr=args.wire_sr, max_batch_chunks=args.max_batch_chunks,
+                         devices=args.devices)
     if args.prewarm:
         n = engine.prewarm(parse_buckets(args.prewarm))
         print(f"| prewarmed {n} bucket programs ({args.prewarm} frames x 1..8 rows)")

@@ -26,7 +26,7 @@ import threading
 
 import numpy as np
 
-from some_tpu_torch.infer import check_devices, load_engine, parse_buckets
+from some_tpu_torch.infer import load_engine, parse_buckets
 from some_tpu_torch.inference.pipeline import segment_to_json
 from some_tpu_torch.inference.streaming import StreamingTranscriber
 
@@ -34,6 +34,13 @@ from some_tpu_torch.inference.streaming import StreamingTranscriber
 #: 4096 frames (~47 s of singing without a pause) is left to a first-visit
 #: capture.
 MAX_PREWARM_FRAMES = 4096
+
+
+def refuse_devices(devices: int) -> None:
+    """Refuse ``--devices`` above 1: the JAX package's stream CLI has no
+    mesh, and a live stream feeds one phrase at a time."""
+    if devices > 1:
+        raise NotImplementedError(f"--devices {devices}: the stream CLI serves on one device")
 
 
 def event_line(event) -> str:
@@ -59,11 +66,11 @@ def main(argv=None) -> None:
                         help="prewarm only these frame buckets (default: every bucket <= "
                              f"{MAX_PREWARM_FRAMES} frames)")
     parser.add_argument("--devices", type=int, default=1,
-                        help="cards to serve on; the port serves on one")
+                        help="cards to serve on: one (a live stream runs one phrase at a time)")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; cpu runs the plain versions)")
     args = parser.parse_args(argv)
-    check_devices(args.devices)
+    refuse_devices(args.devices)
     engine = load_engine(args.model, device=args.device, quiet=True)
 
     sr = engine.config["audio_sample_rate"]

@@ -22,7 +22,7 @@ from http.server import BaseHTTPRequestHandler, HTTPServer
 from typing import Dict, Optional, Tuple
 
 from some_tpu_torch.audio.wavio import load_wav
-from some_tpu_torch.infer import check_devices, load_engine
+from some_tpu_torch.infer import load_engine, make_serving_mesh
 from some_tpu_torch.inference.base_infer import resolve_device
 from some_tpu_torch.inference.pipeline import MAX_DURATION_SEC, transcribe_waveform
 
@@ -38,11 +38,12 @@ PAGE = """<!doctype html><title>SOME-TPU</title>
 
 class WebUI:
     """The checkpoints under ``work_dir`` and one engine per checkpoint,
-    loaded at its first request."""
+    loaded at its first request (over ``devices`` replicas above 1)."""
 
-    def __init__(self, work_dir: pathlib.Path | str, device=None):
+    def __init__(self, work_dir: pathlib.Path | str, device=None, devices: int = 1):
         self.work_dir = pathlib.Path(work_dir)
         self.device = device
+        self.devices = devices
         self.engines: Dict[str, object] = {}
 
     def choices(self) -> list:
@@ -52,7 +53,8 @@ class WebUI:
     def get_engine(self, model_rel_path: str):
         if model_rel_path not in self.engines:
             self.engines[model_rel_path] = load_engine(self.work_dir / model_rel_path,
-                                                       device=self.device, quiet=True)
+                                                       device=self.device, quiet=True,
+                                                       devices=self.devices)
         return self.engines[model_rel_path]
 
     def transcribe(self, model_rel_path: str, audio_path: str,
@@ -142,16 +144,18 @@ def main(argv=None) -> None:
     parser.add_argument("--work_dir", default=None,
                         help="directory of the experiments (default: ./experiments)")
     parser.add_argument("--devices", type=int, default=1,
-                        help="cards to serve on; the port serves on one")
+                        help="serve over a mesh of N engine replicas (cuda:0..N-1, or N on "
+                             "the CPU with --device cpu)")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; cpu runs the plain versions)")
     args = parser.parse_args(argv)
-    check_devices(args.devices)
-    resolve_device(args.device)  # no card and no --device: raise before serving
+    # no card and no --device, or fewer cards than --devices: raise before serving
+    make_serving_mesh(args.devices, args.device)
+    resolve_device(args.device)
     work_dir = pathlib.Path(args.work_dir or "experiments")
     if not work_dir.is_dir():
         raise NotADirectoryError(f"{work_dir} is not a directory.")
-    ui = WebUI(work_dir, device=args.device)
+    ui = WebUI(work_dir, device=args.device, devices=args.devices)
     if not ui.choices():
         raise FileNotFoundError(f"No checkpoints found in {work_dir}.")
     server = make_stdlib_server(ui, args.port, args.addr)

@@ -147,8 +147,14 @@ def test_cli_needs_a_card_and_one_device(dataset_and_ckpt, tmp_path, monkeypatch
 
     dataset, ckpt = dataset_and_ckpt
     args = ["--dataset", str(dataset), "--model", str(ckpt), "--csv", str(tmp_path / "o.csv")]
-    with pytest.raises(NotImplementedError, match="--devices 2"):
-        port_bi.main(args + ["--devices", "2"])
+    n = max(2, torch.cuda.device_count() + 1)
+    with pytest.raises(RuntimeError, match=f"not present \\({torch.cuda.device_count()} CUDA"):
+        port_bi.main(args + ["--devices", str(n)])
+    assert not (tmp_path / "o.csv").exists()
+    # two CPU replicas serve (their CSV against the JAX CLI's: test_torch_mesh.py)
+    port_bi.main(args + ["--device", "cpu", "--devices", "2"])
+    assert len(read_rows(tmp_path / "o.csv")) == 2
+    (tmp_path / "o.csv").unlink()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_bi.main(args)

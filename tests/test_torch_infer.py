@@ -150,13 +150,24 @@ def test_engine_without_device_needs_cuda(monkeypatch, tmp_path, variables, song
         port_cli(["--model", str(tmp_path / "model.ckpt"), "--wav", str(songs[0])])
 
 
-def test_cli_refuses_several_devices(tmp_path, songs):
-    """The JAX CLI's --devices N (a data-parallel mesh) raises above 1."""
+def test_cli_refuses_several_devices(tmp_path, variables, songs):
+    """--devices N above the cards present raises (the CPU with no
+    --device is no fallback); with --device cpu, --devices 2 serves over two
+    CPU replicas and writes the one-device CLI's notes."""
     from some_tpu_torch.infer import main as port_cli
 
-    with pytest.raises(NotImplementedError, match="--devices 2: serving over several cards"):
+    n = max(2, torch.cuda.device_count() + 1)
+    with pytest.raises(RuntimeError, match=f"not present \\({torch.cuda.device_count()} CUDA"):
         port_cli(["--model", str(tmp_path / "model.pt"), "--wav", str(songs[0]),
-                  "--devices", "2"])
+                  "--devices", str(n)])
+    ckpt = save_checkpoint(tmp_path, 1000, variables["params"], variables["batch_stats"])
+    (tmp_path / "config.yaml").write_text(yaml.safe_dump(dict(CONFIG,
+                                                              pl_trainer_precision="32-true")))
+    for devices in ("1", "2"):
+        port_cli(["--model", str(ckpt), "--wav", str(songs[0]), "--midi",
+                  str(tmp_path / f"{devices}.mid"), "--device", "cpu", "--devices", devices])
+    want = _notes(tmp_path / "1.mid")
+    assert len(want) > 0 and _notes(tmp_path / "2.mid") == want
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

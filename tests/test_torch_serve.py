@@ -370,11 +370,42 @@ def test_recycle_after_flips_healthz(tmp_path, engine_cls):
         httpd.server_close()
 
 
-def test_cli_needs_a_card_and_one_device(monkeypatch, tmp_path):
-    from some_tpu_torch.serve import main
+def test_cli_needs_a_card_and_one_device(monkeypatch, tmp_path, variables):  # noqa: F811
+    """--devices above the cards present raises; --device cpu --devices 2
+    serves an engine of two replicas; no card and no --device raises."""
+    import yaml
 
-    with pytest.raises(NotImplementedError, match="--devices 4"):
-        main(["--model", str(tmp_path / "model.pt"), "--devices", "4"])
+    from some_tpu.training.checkpoint import save_checkpoint
+    from some_tpu_torch import serve
+    from tests.test_torch_infer import CONFIG
+
+    main = serve.main
+    n = max(4, torch.cuda.device_count() + 1)
+    with pytest.raises(RuntimeError, match=f"not present \\({torch.cuda.device_count()} CUDA"):
+        main(["--model", str(tmp_path / "model.pt"), "--devices", str(n)])
+
+    class Stopped:
+        """A server whose serve_forever returns at once."""
+        server_address = ("127.0.0.1", 0)
+
+        def serve_forever(self):
+            pass
+
+        def server_close(self):
+            pass
+
+    served = []
+
+    def make_stopped_server(engine, *args, **kwargs):
+        served.append(engine)
+        return Stopped(), None
+
+    monkeypatch.setattr(serve, "make_server", make_stopped_server)
+    ckpt = save_checkpoint(tmp_path, 1000, variables["params"], variables["batch_stats"])
+    (tmp_path / "config.yaml").write_text(yaml.safe_dump(CONFIG))
+    main(["--model", str(ckpt), "--device", "cpu", "--devices", "2", "--port", "0"])
+    engine, = served
+    assert [r.device.type for r in engine.replicas] == ["cpu", "cpu"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     (tmp_path / "config.yaml").write_text("task_cls: training.MIDIExtractionTask\n"
                                           "hop_size: 512\naudio_sample_rate: 44100\n")

@@ -100,8 +100,20 @@ def test_cli_needs_a_card_one_device_and_a_work_dir(work_dir, tmp_path, monkeypa
 
     from some_tpu_torch.webui import main
 
-    with pytest.raises(NotImplementedError, match="--devices 2"):
-        main(["--devices", "2", "--device", "cpu"])
+    n = max(2, torch.cuda.device_count() + 1)
+    with pytest.raises(RuntimeError, match=f"not present \\({torch.cuda.device_count()} CUDA"):
+        main(["--devices", str(n), "--work_dir", str(work_dir)])
+    # two CPU replicas serve an upload: the one-replica UI's MIDI bytes
+    wav = tmp_path / "song.wav"
+    save_wav(wav, synth(3.0, 440, seed=4), 44100)
+    written = []
+    for devices in (1, 2):
+        ui = WebUI(work_dir, device="cpu", devices=devices)
+        midi, status = ui.transcribe(ui.choices()[0], str(wav), 120)
+        assert midi is not None, status
+        assert len(ui.get_engine(ui.choices()[0]).replicas) == devices
+        written.append(pathlib.Path(midi).read_bytes())
+    assert written[0] == written[1]
     with pytest.raises(FileNotFoundError, match="No checkpoints"):
         main(["--work_dir", str(tmp_path), "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
