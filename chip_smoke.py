@@ -5,6 +5,10 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --mesh`` runs the ``mesh`` phase alone on its
+set-up, to check the two-card branch on a machine with two cards; it is not
+the smoke test and prints no ``ok`` line.)
+
 Phases, each of which raises (and so exits non-zero) on failure:
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles every kernel under some_tpu_torch/csrc with nvcc, all
@@ -120,6 +124,7 @@ host work included where the card waits for it. K1's rows add the card's
 time alone (``device_ms``, ``library_device_ms``: the durations of a call's
 kernels, from torch.profiler) and the wrapper's host time (``host_ms``).
 """
+import contextlib
 import json
 import os
 import pathlib
@@ -319,10 +324,20 @@ def report_depthwise_variants(lib: pathlib.Path, nvcc: str):
     log("K1 SASS (instructions, of them FMUL/FADD/FFMA): " + json.dumps(mix))
 
 
+def pow2(torch, like, exponent):
+    """``2 ** exponent`` (an int tensor) in float32 on ``like``'s device,
+    with that device current: ``torch.ldexp`` of tensors on ``cuda:1`` made
+    with device 0 current faulted with an illegal memory access on device 0
+    (PyTorch 2.11.0+cu128, two H100s; ``tools/torch_mesh_probe.py``)."""
+    guard = torch.cuda.device(like.device) if like.is_cuda else contextlib.nullcontext()
+    with guard:
+        return torch.ldexp(torch.ones_like(like, dtype=torch.float32), exponent)
+
+
 def bf16_ulp(torch, ref):
     """Spacing of bfloat16 numbers at each |ref| (8 significant bits)."""
     _, exponent = torch.frexp(ref.float().abs())
-    return torch.ldexp(torch.ones_like(ref, dtype=torch.float32), exponent - 8)
+    return pow2(torch, ref, exponent - 8)
 
 
 def grad_tolerance(torch, want, rel, dtype=None):
@@ -336,7 +351,7 @@ def grad_tolerance(torch, want, rel, dtype=None):
     w = want.detach().float()
     _, exponent = torch.frexp(w.abs())
     bits = 8 if (dtype or want.dtype) == torch.bfloat16 else 24
-    ulp = torch.where(w == 0, 0.0, torch.ldexp(torch.ones_like(w), exponent - bits))
+    ulp = torch.where(w == 0, 0.0, pow2(torch, w, exponent - bits))
     return 2 * ulp + rel * float(w.pow(2).mean().sqrt())
 
 
@@ -496,7 +511,185 @@ KERNEL_GROUPS = (("flash_fwd_stats", "flash_attention_fwd_res"),
                  ("splash_fwd", "splash_attention"), ("splash_bwd_dkv", "splash_attention_bwd_dkv"),
                  ("splash_bwd_dq", "splash_attention_bwd_dq"),
                  ("fused_ffn", "fused_ln_ffn_residual"),
-                 ("depthwise_dw", "depthwise_conv1d_dw"), ("depthwise_fwd", "depthwise_conv1d"))
+                 ("depthwise_dw", "depthwise_conv1d_dw"), ("depthwise_fwd", "depthwise_conv1d"),
+                 ("replica_max", "replica_max"))
+
+# int8 sites of one forward of the production model (8 dual-stream layers):
+# 18 conformer blocks x 8 and 8 layers x 2 GLU gates, one exchange each on a mesh
+INT8_SITES = 160
+# a lone replica of a group of two, in a process of its own: its exchange
+# kernel finds no peer, traps past the bound (argv[2] s), and synchronize raises
+LONE_REPLICA = """
+import os, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from some_tpu_torch.ops.replica_max import ReplicaGroup, replica_max
+group = ReplicaGroup(["cuda:0", "cuda:0"], bound_s=float(sys.argv[2]))
+amax = torch.ones((), device="cuda")
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+replica_max(amax, group.members[0])
+try:
+    torch.cuda.synchronize()
+except RuntimeError as exc:
+    print(f"raised after {time.perf_counter() - t0:.3f} s: {str(exc).splitlines()[0]}", flush=True)
+    os._exit(0)  # the context is lost: no teardown of it at exit
+print("the lone exchange returned", flush=True)
+os._exit(1)
+"""
+
+
+def lone_replica_traps(bound_s: float = 1.0, limit_s: float = 120.0) -> dict:
+    """``LONE_REPLICA`` in a child process: it must raise (the kernel's
+    trap) after at least ``bound_s`` and end within ``limit_s``."""
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", LONE_REPLICA, str(REPO), str(bound_s)],
+                           capture_output=True, text=True, timeout=limit_s)
+    wall = time.perf_counter() - t0
+    said = child.stdout.strip().splitlines()
+    if child.returncode != 0 or not said or not said[-1].startswith("raised after"):
+        raise AssertionError(f"a lone replica's exchange did not fail in its bound: exit "
+                             f"{child.returncode}, stdout {child.stdout[-2000:]!r}, stderr "
+                             f"{child.stderr[-2000:]!r}")
+    raised_s = float(said[-1].split()[2])
+    if raised_s < bound_s:
+        raise AssertionError(f"a lone replica's exchange raised after {raised_s} s, before its "
+                             f"bound {bound_s} s")
+    return {"bound_s": bound_s, "raised_after_s": raised_s, "child_wall_s": wall,
+            "said": said[-1], "kernel_printed": "replica_max: replica 0 of 2" in child.stdout}
+
+
+def check_replica_max(torch, sites: int = INT8_SITES, replays: int = 3,
+                      devices=("cuda:0", "cuda:0")) -> dict:
+    """The exchange kernel (csrc/replica_max.cu) against its plain version
+    (``replica_max_plain``) on two replicas on ``devices`` (two of
+    ``cuda:0`` by default; ``cuda:0`` and ``cuda:1`` across the host link),
+    each on a stream of its own: ``sites`` exchanges of random amaxes
+    eagerly, then each replica's ``sites`` exchanges captured in a CUDA
+    graph and the two graphs replayed ``replays`` times with new amaxes,
+    every output of every replica bit for bit the plain max (``max_abs_diff``
+    is the largest difference seen). Between the two replicas' eager
+    launches of one round the host also allocates a fresh block on the card
+    (after ``empty_cache``) and a pinned one, which must not wait for the
+    first replica's spinning exchange. Times (CUDA events): the two
+    replicas' graph replays over ``sites`` (ms an exchange); the bound, the
+    same replays of the exchange's bare traffic (``replica_max_touch``: its
+    store and loads with no wait): the bytes it must move, at the rate the
+    host link gives single words, which the HBM rate does not bound; the plain
+    version on one pair. No single PyTorch call exchanges between two
+    streams' work, so ``library_ms`` is None. Returns the kernel's row."""
+    from some_tpu_torch.ops.replica_max import (
+        ReplicaGroup, launching, replica_max_plain, replica_max_touch, replica_stream, slot_table,
+    )
+
+    devs = [torch.device(d) for d in devices]
+    torch.cuda.set_device(0)
+    group = ReplicaGroup(devs)
+    streams = [replica_stream(d) for d in devs]
+    gen = torch.Generator().manual_seed(16)
+    amax = [torch.empty(sites, device=d) for d in devs]
+    currents = {d: torch.cuda.current_stream(d) for d in set(devs)}
+    current = torch.cuda.current_stream(devs[0])
+    worst = [0.0]
+
+    def fill():
+        for a in amax:
+            # exponential draws, a few exact zeros: the scale's clamp case
+            a.copy_(torch.empty(sites).exponential_(0.3, generator=gen)
+                    * (torch.rand(sites, generator=gen) > 0.05))
+        for s, d in zip(streams, devs):
+            s.wait_stream(currents[d])
+
+    def exchanges(r, member=None):
+        member = member or group.members[r]
+        with torch.cuda.device(devs[r]), torch.cuda.stream(streams[r]):
+            return torch.stack([member.max(amax[r][i]) for i in range(sites)])
+
+    def join():
+        for s in streams:
+            current.wait_stream(s)
+
+    def held(outs, label):
+        pairs = [a.cpu() for a in amax]
+        want = torch.stack([replica_max_plain([pairs[0][i], pairs[1][i]]) for i in range(sites)])
+        for r, out in enumerate(outs):
+            out = out.cpu()
+            worst[0] = max(worst[0], float((out - want).abs().max()))
+            if not torch.equal(out, want):
+                raise AssertionError(f"replica_max {label}: replica {r} differs from the plain "
+                                     f"max at {int((out != want).sum())} of {sites} sites")
+
+    fill()
+    # each replica's work once against a group of one first: a kernel's first
+    # launch in a process loads its module (CUDA's lazy loading), which may
+    # wait for the card, and so for a peer's spinning exchange
+    for r, member in enumerate(group.members):
+        with member.run_alone():
+            exchanges(r)
+    for d in set(devs):
+        torch.cuda.synchronize(d)
+    torch.cuda.empty_cache()
+    with launching():
+        outs = [exchanges(0)]
+        # replica 0's first exchange now waits on the card for replica 1's
+        fresh = torch.empty(3 * 2 ** 28 // 4 + 4099, device=devs[0])
+        pinned = torch.empty(100 * 2 ** 20 // 4 + 811).pin_memory()
+        outs.append(exchanges(1))
+    join()
+    torch.cuda.synchronize(devs[1])
+    held(outs, "eager")
+    del fresh, pinned
+    graphs, static = [], []
+    for r in range(2):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(devs[r]), torch.cuda.graph(graph, stream=streams[r]):
+            static.append(exchanges(r))
+        graphs.append(graph)
+
+    def replay_all(gs):
+        with launching():
+            for r, graph in enumerate(gs):
+                with torch.cuda.device(devs[r]), torch.cuda.stream(streams[r]):
+                    graph.replay()
+        join()
+
+    for _ in range(replays):
+        fill()
+        replay_all(graphs)
+        torch.cuda.synchronize(devs[1])
+        torch.cuda.synchronize(devs[0])
+        held(static, "graph replay")
+    fill()
+    round_ms = median_ms(torch, lambda: replay_all(graphs), reps=10, warmup=2)
+    # the bound: each replica's bare store and loads, as many, replayed alike
+    table = slot_table(2 * len(devs))
+    touches = []
+    for r in range(2):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(devs[r]), torch.cuda.graph(graph, stream=streams[r]):
+            sink = torch.empty(sites, device=devs[r])
+            for i in range(sites):
+                replica_max_touch(table, len(devs), r, sink[i])
+        touches.append(graph)
+    bound_round_ms = median_ms(torch, lambda: replay_all(touches), reps=10, warmup=2)
+    pair = [amax[0][0], amax[1][0].to(devs[0])]
+    plain_ms = median_ms(torch, lambda: replica_max_plain(pair))
+    label = "+".join(devices)
+    row = {"shape": [2, sites], "dtype": "float32", "devices": list(devices),
+           "max_abs_diff": worst[0], "kernel_ms": round_ms / sites, "plain_ms": plain_ms,
+           "library_ms": None, "bound_ms": bound_round_ms / sites, "bound_by": "bytes",
+           "bound_note": "the bytes an exchange must move across the host link (one store, "
+                         "one load a replica) at the link's measured rate for single words: "
+                         "replica_max_touch's replays",
+           "replays": replays, "graph_round_ms": round_ms, "bound_round_ms": bound_round_ms,
+           "library": "none: no PyTorch call exchanges between two replicas' streams"}
+    log(f"replica_max: {sites} exchanges x 2 replicas of {label} bit for bit with the plain max "
+        f"(eager with a fresh card and pinned allocation between the replicas' launches, then "
+        f"{replays} graph replays); {row['kernel_ms'] * 1e3:.2f} us an exchange ({round_ms:.3f} "
+        f"ms a round of {sites}), bound (the bare store and loads) "
+        f"{row['bound_ms'] * 1e3:.2f} us, plain {plain_ms:.4f} ms")
+    del graphs, static, touches
+    return row
 
 
 def profile_pass(torch, run):
@@ -827,6 +1020,22 @@ def cold_cli(torch, model, wav, workdir: pathlib.Path, reps: int = 2) -> dict:
     return {"audio_s": audio_s, "runs": runs}
 
 
+def model_dir(workdir: pathlib.Path, setup: dict, tag: str, precision: str, opt_in: bool,
+              quantize: bool) -> pathlib.Path:
+    """``workdir/<tag>-<precision>/``: the infer set-up's config in that
+    precision (with the opt-in keys, with ``quantize: int8``) beside a link
+    to its checkpoint. Returns the checkpoint's path there."""
+    from some_tpu_torch.config import save_yaml
+
+    d = workdir / f"{tag}-{precision}"
+    d.mkdir()
+    save_yaml(dict(setup["config"], pl_trainer_precision=precision,
+                   **(OPT_IN if opt_in else {}), **({"quantize": "int8"} if quantize else {})),
+              d / "config.yaml")
+    os.symlink(setup["ckpt"], d / "model.pt")
+    return d / "model.pt"
+
+
 def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False,
               quantize: bool = False, precisions=("bf16", "32-true")):
     """The infer CLI's path (``load_engine`` + ``transcribe_file``) in each of
@@ -857,7 +1066,6 @@ def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False,
     unquantized run of
     the same configuration and precision (its MIDI files, which must exist),
     and the resident weight bytes are recorded."""
-    from some_tpu_torch.config import save_yaml
     from some_tpu_torch.infer import load_engine, transcribe_file
     from some_tpu_torch.inference.base_infer import set_dispatch
     from some_tpu_torch.nn.conformer import set_kernel_impl
@@ -874,13 +1082,7 @@ def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False,
         per_forward.pop("fused_ln_ffn_residual", None)
     dirs = {}
     for precision in precisions:
-        d = workdir / f"{tag}-{precision}"
-        d.mkdir()
-        save_yaml(dict(setup["config"], pl_trainer_precision=precision,
-                       **(OPT_IN if opt_in else {}), **({"quantize": "int8"} if quantize else {})),
-                  d / "config.yaml")
-        os.symlink(setup["ckpt"], d / "model.pt")
-        dirs[precision] = d / "model.pt"
+        dirs[precision] = model_dir(workdir, setup, tag, precision, opt_in, quantize)
 
     def run_pass(engine, name):
         t0 = time.perf_counter()
@@ -964,6 +1166,10 @@ def main_path(torch, workdir: pathlib.Path, setup: dict, opt_in: bool = False,
         log(f"{tag} {precision} graph vs eager: " + json.dumps(dispatch))
         graph_vs_eager_f1 = f1s(eager_midis, midis)
         weight_bytes = graph.weight_bytes
+        if quantize and not opt_in and precision == "bf16":
+            # the mesh phase's one int8 engine: loaded, quantized and prewarmed once
+            set_dispatch(graph, "graph")
+            setup["int8_engine"] = graph
         del graph, eager
         torch.cuda.empty_cache()
 
@@ -1027,6 +1233,7 @@ def kernel_counters():
     from some_tpu_torch.ops import attention as A
     from some_tpu_torch.ops import depthwise as W
     from some_tpu_torch.ops import fused_ffn as K3
+    from some_tpu_torch.ops.replica_max import replica_max
 
     return {"depthwise_conv1d": W.depthwise_conv1d, "depthwise_conv1d_dx": W.depthwise_conv1d_dx,
             "depthwise_conv1d_dw": W.depthwise_conv1d_dw, "flash_attention": A.flash_attention,
@@ -1037,7 +1244,8 @@ def kernel_counters():
             "splash_attention": A.splash_attention,
             "splash_attention_fwd_res": A.splash_attention_fwd_res,
             "splash_attention_bwd_dkv": A.splash_attention_bwd_dkv,
-            "splash_attention_bwd_dq": A.splash_attention_bwd_dq}
+            "splash_attention_bwd_dq": A.splash_attention_bwd_dq,
+            "replica_max": replica_max}
 
 
 def read_counts():
@@ -1485,7 +1693,7 @@ def splash_flip_allowance(torch, qs, k, v, do, lse, di, mask):
     def one_flip(x, y):
         """max over rows i of ulp_bf16(x[i, j]) * |y[i, d]|, in chunks of rows."""
         _, exponent = torch.frexp(x)
-        ulp = torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), exponent - 8))
+        ulp = torch.where(x == 0, 0.0, pow2(torch, x, exponent - 8))
         del exponent
         B, H, T, D = y.shape
         y = y.float().abs()
@@ -1740,13 +1948,22 @@ def in_memory_task(config, train_items, valid_items, device="cuda"):
     """The port's task of ``config`` (``train.TASKS``) reading in-memory
     items instead of HDF5 (the pattern of tests/test_training.py's
     RecordingTask)."""
+    def load_datasets():
+        sizes = lambda items: np.array([i["length"] for i in items])
+        return (train_items, sizes(train_items)), (valid_items, sizes(valid_items))
+
+    task = recording_task(config, device)
+    task.load_datasets = load_datasets
+    return task
+
+
+def recording_task(config, device="cuda"):
+    """The port's task of ``config`` (``train.TASKS``), whose train steps
+    keep their seconds, losses and launches (``step_records``) and whose
+    validation forwards their launches (``valid_launches``)."""
     from some_tpu_torch.train import TASKS
 
-    class InMemoryTask(TASKS[config["task_cls"]]):
-        def load_datasets(self):
-            sizes = lambda items: np.array([i["length"] for i in items])
-            return (train_items, sizes(train_items)), (valid_items, sizes(valid_items))
-
+    class RecordingTask(TASKS[config["task_cls"]]):
         def valid_step(self, state, batch):
             before = read_counts()
             out = super().valid_step(state, batch)
@@ -1770,7 +1987,7 @@ def in_memory_task(config, train_items, valid_items, device="cuda"):
                 "launches": {n: after[n] - before[n] for n in after}})
             return logs
 
-    task = InMemoryTask(config, device=device)
+    task = RecordingTask(config, device=device)
     task.step_records = []
     task.valid_launches = []
     return task
@@ -3491,6 +3708,9 @@ def kernels_on_second_card(torch) -> dict:
         + json.dumps(ratios))
     if not all(r <= 1.0 for r in ratios.values()):
         raise AssertionError(f"a kernel on cuda:1 disagrees with its plain version: {ratios}")
+    # a fault of any launch above is charged here, not to the next caller
+    for d in (1, 0):
+        torch.cuda.synchronize(d)
     return ratios
 
 
@@ -3506,7 +3726,8 @@ def mesh_pass(torch, engine, wavs, workdir: pathlib.Path, tag: str):
     return paths, time.perf_counter() - t0
 
 
-def mesh_run(torch, workdir: pathlib.Path, setup: dict, one, devices, per_forward) -> tuple:
+def mesh_run(torch, workdir: pathlib.Path, setup: dict, one, devices, per_forward,
+             quantize: bool = False) -> tuple:
     """One serving mesh in default bf16 over ``devices``, from launch counts
     at 0: built (through ``load_engine(devices=2)`` on two cards, through
     the engine's ``mesh`` where both replicas share ``cuda:0``), ``prewarm``
@@ -3520,7 +3741,12 @@ def mesh_run(torch, workdir: pathlib.Path, setup: dict, one, devices, per_forwar
     there; an
     eager bucket run launching each replica's forward; each replica's graph
     of every bucket holding one forward's hand-written kernels (its kernel
-    nodes). Returns (result, launches)."""
+    nodes). ``quantize``: the int8 phase's checkpoint (``quantize: int8``),
+    ``one`` an int8 engine, and per forward ``INT8_SITES`` exchanges a
+    replica besides K1 and K2: in the eager bucket run every replica's max
+    at every site is recorded and must be the same bit for bit, each
+    replica's graph is printed under ``alone()`` (a group of one), and one
+    replica's ``_run`` alone must be refused. Returns (result, launches)."""
     from some_tpu_torch.config import load_yaml
     from some_tpu_torch.infer import load_engine
     from some_tpu_torch.inference.base_infer import build_inference, set_dispatch
@@ -3528,9 +3754,10 @@ def mesh_run(torch, workdir: pathlib.Path, setup: dict, one, devices, per_forwar
     from some_tpu_torch.utils.midi_file import MidiFile, midi_notes_to_arrays
     from some_tpu_torch.utils.note_f1 import note_f1
 
-    model, wavs, audio_s = workdir / "default-bf16" / "model.pt", setup["wavs"], setup["audio_s"]
+    tag = "default-int8-bf16" if quantize else "default-bf16"
+    model, wavs, audio_s = workdir / tag / "model.pt", setup["wavs"], setup["audio_s"]
     cards = sorted(set(devices))
-    label = "+".join(devices)
+    label = "+".join(devices) + (" int8" if quantize else "")
     torch.cuda.empty_cache()
     base = {}
     for card in cards:
@@ -3546,6 +3773,8 @@ def mesh_run(torch, workdir: pathlib.Path, setup: dict, one, devices, per_forwar
     build_s = time.perf_counter() - t0
     if [str(r.device) for r in mesh.replicas] != list(devices):
         raise AssertionError(f"mesh {label}: replicas on {[str(r.device) for r in mesh.replicas]}")
+    if (mesh.model.quant == "int8") != quantize or (mesh._member is not None) != quantize:
+        raise AssertionError(f"mesh {label}: model {mesh.model.quant}, group {mesh._member}")
     t0 = time.perf_counter()
     n = mesh.prewarm(setup["buckets"])
     prewarm_s = time.perf_counter() - t0
@@ -3572,6 +3801,18 @@ def mesh_run(torch, workdir: pathlib.Path, setup: dict, one, devices, per_forwar
 
     groups, _ = mesh.bucket_groups(setup["chunks"])
     set_dispatch(mesh, "eager")
+    if quantize:
+        # the bucket's first eager run warms each replica's stream up against
+        # a group of one (base_infer._warm_up): the counted run is the second
+        mesh.run_bucket(*groups[0][1:])
+    sites = [[] for _ in mesh.replicas]
+    for replica, seen in zip(mesh.replicas, sites):
+        if replica._member is not None:
+            def recording(amax, exchange=replica._member.max, seen=seen):
+                seen.append(exchange(amax))
+                return seen[-1]
+
+            replica._member.max = recording
     reset_counts()
     mesh.run_bucket(*groups[0][1:])
     for card in cards:
@@ -3579,6 +3820,28 @@ def mesh_run(torch, workdir: pathlib.Path, setup: dict, one, devices, per_forwar
     eager = {name: c for name, c in read_counts().items() if c}
     if eager != {name: c * len(devices) for name, c in per_forward.items()}:
         raise AssertionError(f"mesh {label}: an eager bucket run launched {eager}")
+    same_scale = None
+    if quantize:
+        for replica in mesh.replicas:
+            del replica._member.max
+        got = [torch.stack(seen).cpu() for seen in sites]
+        if len(got[0]) != INT8_SITES or not all(torch.equal(g, got[0]) for g in got[1:]):
+            raise AssertionError(f"mesh {label}: the replicas' maxes at the int8 sites differ "
+                                 f"({[len(g) for g in got]} sites)")
+        from some_tpu_torch.inference.base_infer import SITES_PER_GRAPH
+
+        segments = sorted({len(e.graphs) for r in mesh.replicas for e in r._graphs.values()})
+        if segments != [INT8_SITES // SITES_PER_GRAPH + 1]:
+            raise AssertionError(f"mesh {label}: graph segments a bucket {segments}")
+        same_scale = {"sites": len(got[0]), "replicas": len(got), "graph_segments": segments[0],
+                      "min_sx": float(torch.clamp(got[0] / 127.0, min=1e-8).min())}
+        a, m, _ = mesh.replicas[1]._stage(*(x[:1] for x in groups[0][1:]))
+        try:
+            mesh.replicas[1]._run(a, m, None, False, False)
+        except RuntimeError as exc:
+            same_scale["lone_run_refused"] = str(exc)
+        else:
+            raise AssertionError(f"mesh {label}: a replica's _run alone was not refused")
     set_dispatch(mesh, "graph")
     nodes = []
     for _, audio, mask in {g[2].shape[1]: g for g in groups}.values():  # one group a bucket
@@ -3586,7 +3849,8 @@ def mesh_run(torch, workdir: pathlib.Path, setup: dict, one, devices, per_forwar
                        for x in pad_rows(audio, mask, len(devices), mesh.wire,
                                          mask.shape[1] * mesh.hop - 1)))
         for replica, (a, m) in zip(mesh.replicas, shards):
-            held = hand_written(graph_kernel_nodes(torch, replica, a, m))
+            with replica.alone():
+                held = hand_written(graph_kernel_nodes(torch, replica, a, m))
             if held != per_forward:
                 raise AssertionError(f"mesh {label}: {replica.device}'s graph of shard "
                                      f"{m.shape} holds {held}, want {per_forward}")
@@ -3597,12 +3861,12 @@ def mesh_run(torch, workdir: pathlib.Path, setup: dict, one, devices, per_forwar
               "f1_vs_one_engine": f1, "warm_s": warm, "rtf_warm_median": rtf,
               "peak_reserved_gib": peak, "peak_reserved_gib_per_replica": per_replica,
               "eager_bucket_launches": eager, "graph_kernel_nodes": nodes,
-              "weight_bytes": mesh.weight_bytes}
+              "weight_bytes": mesh.weight_bytes, "int8_sites": same_scale}
     log(f"mesh {label}: built in {build_s:.2f} s, prewarm {n} shard graphs a replica in "
         f"{prewarm_s:.2f} s; launches {launched} (captures only); F1 vs one engine {f1}; warm "
         f"RTF mesh {rtf['mesh']:.2f}x vs one engine {rtf['one']:.2f}x on the same card(s); "
         f"peak reserved GiB added {peak} ({per_replica} a replica); an eager bucket {eager}; "
-        f"graph kernel nodes {nodes}")
+        f"graph kernel nodes {nodes}; int8 sites {same_scale}")
     del mesh
     torch.cuda.empty_cache()
     return result, launched
@@ -3646,8 +3910,13 @@ def mesh_check(torch, workdir: pathlib.Path, setup: dict):
     replicas on ``cuda:0`` (a mesh may repeat a device), and ``cuda:0`` +
     ``cuda:1`` where two cards exist (``mesh_run`` each), one bucket in
     32-true (``mesh_f32_bucket``), and, on two cards, every kernel on
-    ``cuda:1`` with device 0 current (``kernels_on_second_card``). Returns
-    (results, {path: launches})."""
+    ``cuda:1`` with device 0 current (``kernels_on_second_card``) and the
+    exchange kernel across the two cards (``check_replica_max``). Then the
+    same meshes with ``quantize: int8`` on the int8 phase's checkpoint,
+    against that phase's bf16 engine of the default configuration, kept
+    prewarmed (``mesh_run(quantize=True)``), and a lone replica's exchange
+    in a child process, which must trap in its bound
+    (``lone_replica_traps``). Returns (results, {path: launches})."""
     from some_tpu_torch.infer import load_engine
 
     blocks = setup["blocks"]
@@ -3670,6 +3939,19 @@ def mesh_check(torch, workdir: pathlib.Path, setup: dict):
     results["f32_bucket"] = mesh_f32_bucket(torch, workdir, setup, meshes[-1])
     if len(meshes) > 1:
         results["kernels_on_cuda1"] = kernels_on_second_card(torch)
+        # the exchange across the host link, after every kernel has run on both cards
+        results["replica_max_two_cards"] = check_replica_max(torch, devices=meshes[-1])
+    # the int8 phase's bf16 engine of the default configuration, prewarmed there
+    one = setup.pop("int8_engine")
+    per_forward = dict(per_forward, replica_max=INT8_SITES)
+    for devices in meshes:
+        key = "int8_one_card" if devices[0] == devices[1] else "int8_two_cards"
+        results[key], launches[f"mesh_{key}"] = mesh_run(torch, workdir, setup, one, devices,
+                                                         per_forward, quantize=True)
+    del one
+    torch.cuda.empty_cache()
+    results["lone_replica"] = lone_replica_traps()
+    log(f"mesh: a lone replica's exchange {json.dumps(results['lone_replica'])}")
     return results, launches
 
 
@@ -3706,12 +3988,17 @@ def binarize_check(torch, workdir: pathlib.Path, shortest: float = 5.0, longest:
        agreement (flips only within 1e-4 of the 0.03 threshold);
     2. the binarizer on a DiffSinger dataset of 16 songs of 5-60 s
        (``bench_binarize``'s, ``pe: rmvpe`` on that file, mel units,
-       ``key_shift_factor: 2``): ``prepare_items`` and ``process_item`` over
-       both splits on the card and on the CPU (no HDF5 write: the card's
-       machine has no h5py), every item's labels and units equal, its pitch
-       within 1e-3 semitone; the bench_binarize line of the card's pass;
-       then two train steps of the default model (configs/midi_conformer.yaml)
-       on the card's items, with K1 and K2 launches counted from 0;
+       ``key_shift_factor: 2``): the card's pass is ``process()``, which
+       writes ``train.data`` / ``valid.data`` with the port's HDF5 codec
+       (``data/hdf5.py``: the card's machine has no h5py), the CPU's runs
+       ``prepare_items`` and ``process_item`` over both splits without the
+       write; every item's labels and units equal, its pitch within 1e-3
+       semitone; the bench_binarize line of the card's pass; every item read
+       back from the files equal to the card's in memory, bit for bit (the
+       write's and the read's seconds, the files' bytes); then two train
+       steps of the default model (configs/midi_conformer.yaml) on the 8
+       shortest items of the written train set, read through the task's
+       ``load_datasets``, with K1 and K2 launches counted from 0;
     3. ContentVec at full HuBERT-base width (768, 12 heads, FFN 3072, output
        layer 9) on seeded random weights: two songs of about 5 s on the card
        against the CPU (5e-5 + 1e-4 |want|), and the bucketed, masked
@@ -3758,7 +4045,11 @@ def binarize_check(torch, workdir: pathlib.Path, shortest: float = 5.0, longest:
         raise AssertionError(f"RMVPE on the card differs from the CPU: {result['rmvpe_vs_cpu']}")
     result["rmvpe_s"] = time.perf_counter() - t_phase
 
-    # 2. the binarizer: the card's pass against the CPU's, then two train steps
+    # 2. the binarizer: the card's pass (written) against the CPU's, the
+    # written set read back, then two train steps read from it
+    from some_tpu_torch.data.indexed_dataset import IndexedDataset
+    from some_tpu_torch.preprocessing.me_binarizer import MIDI_EXTRACTION_ITEM_ATTRIBUTES
+
     t0 = time.perf_counter()
     seconds = [float(s) for s in np.round(np.linspace(shortest, longest, 16), 1)]
     audio_s = bench_binarize.write_song_dataset(d / "raw", np.random.default_rng(42), seconds)
@@ -3766,13 +4057,14 @@ def binarize_check(torch, workdir: pathlib.Path, shortest: float = 5.0, longest:
     for device in ("cuda", "cpu"):
         config = bench_binarize.bench_config(d / "raw", d / f"binary-{device}", ckpt, aug=2,
                                              units_dim=80)
-        passes[device] = bench_binarize.timed_pass(config, device, write=False)
+        passes[device] = bench_binarize.timed_pass(config, device, write=device == "cuda")
     line = bench_binarize.bench_line(passes["cuda"][0], len(seconds), audio_s, "cuda",
                                      aug_factor=2)
-    log("bench_binarize (the card's pass): " + json.dumps(line))
+    log("bench_binarize (the card's pass, written): " + json.dumps(line))
     pitch_diff, n_items = 0.0, 0
+    items = {}
     for prefix in ("valid", "train"):
-        got = [i for group in passes["cuda"][1][prefix] for i in group]
+        got = items[prefix] = [i for group in passes["cuda"][1][prefix] for i in group]
         want = [i for group in passes["cpu"][1][prefix] for i in group]
         if len(got) != len(want) or not got:
             raise AssertionError(f"{prefix}: {len(got)} items on the card, {len(want)} on the CPU")
@@ -3787,15 +4079,39 @@ def binarize_check(torch, workdir: pathlib.Path, shortest: float = 5.0, longest:
             n_items += 1
     if pitch_diff > 1e-3:
         raise AssertionError(f"binarized pitch differs card vs CPU by {pitch_diff} semitones")
-    result["binarizer"] = {"items": n_items, "max_pitch_diff_semitones": pitch_diff,
-                           "bench_binarize": line, "cpu_pass_s": passes["cpu"][0]["wall_s"]}
-    train_items = sorted((i for group in passes["cuda"][1]["train"] for i in group),
-                         key=lambda i: i["length"])[:8]
-    valid_items = [i for group in passes["cuda"][1]["valid"] for i in group]
     del passes
-    task = in_memory_task(production_config(), train_items, valid_items)
+    # the written set, read back with the port's codec: every item the card's
+    # in-memory item, bit for bit (the fields the binarizer writes)
+    binary = d / "binary-cuda"
+    t_read = time.perf_counter()
+    read = {prefix: [ds[i] for i in range(len(ds))]
+            for prefix, ds in ((p, IndexedDataset(binary, p)) for p in ("valid", "train"))}
+    read_s = time.perf_counter() - t_read
+    for prefix, want in items.items():
+        if len(read[prefix]) != len(want):
+            raise AssertionError(f"{prefix}: {len(read[prefix])} items read, {len(want)} written")
+        for i, (got, item) in enumerate(zip(read[prefix], want)):
+            item = {k: v for k, v in item.items() if k in MIDI_EXTRACTION_ITEM_ATTRIBUTES}
+            if sorted(got) != sorted(item) or not all(
+                    np.asarray(got[k]).dtype == np.asarray(v).dtype
+                    and np.asarray(got[k]).tobytes() == np.asarray(v).tobytes()
+                    for k, v in item.items()):
+                raise AssertionError(f"{prefix} item {i} read back differs from the card's")
+    files = {prefix: (binary / f"{prefix}.data").stat().st_size for prefix in read}
+    result["binarizer"] = {"items": n_items, "max_pitch_diff_semitones": pitch_diff,
+                           "bench_binarize": line,
+                           "hdf5_write_s": line["hdf5_write_s"], "hdf5_read_s": read_s,
+                           "hdf5_bytes": files}
+    log(f"binarize: the card's set written in {line['hdf5_write_s']:.3f} s ({files} bytes) and "
+        f"read back in {read_s:.3f} s, {n_items} items = the card's in memory")
+    del items, read
+    # two train steps of the default model on the 8 shortest items of the
+    # written train set, read through the task's own load_datasets
+    task = recording_task(production_config(binary_data_dir=str(binary)))
+    (train_set, train_lengths), _ = task.load_datasets()
+    shortest_items = [train_set[int(i)] for i in np.argsort(train_lengths, kind="stable")[:8]]
     state = task.init_state(seed=2718)
-    batch = task.to_device(task.collate(train_items))
+    batch = task.to_device(task.collate(shortest_items))
     reset_counts()
     for _ in range(2):
         logs = task.train_step(state, batch)
@@ -3803,14 +4119,14 @@ def binarize_check(torch, workdir: pathlib.Path, shortest: float = 5.0, longest:
     losses = [r["total_loss"] for r in task.step_records]
     if not (np.isfinite(losses).all() and launched["depthwise_conv1d"]
             and launched["flash_attention_fwd_res"]):
-        raise AssertionError(f"train steps on binarized items: losses {losses}, "
+        raise AssertionError(f"train steps on the written set: losses {losses}, "
                              f"launches {launched}")
     result["train_steps"] = {"batch": [int(batch["size"]), int(batch["units"].shape[1])],
                              "total_loss": losses, "grad_norm": float(logs["grad_norm"]),
                              "launches": {n: c for n, c in launched.items() if c}}
     log(f"binarize: {n_items} items card = CPU (pitch within {pitch_diff:.3g} semitone); two "
-        f"train steps on them: {json.dumps(result['train_steps'])}")
-    del task, state, batch
+        f"train steps read from the written set: {json.dumps(result['train_steps'])}")
+    del task, state, batch, train_set
     torch.cuda.empty_cache()
     result["binarizer_s"] = time.perf_counter() - t0
 
@@ -3846,6 +4162,34 @@ def max_sm_clock_mhz() -> float:
     return float(smi.stdout.strip().splitlines()[0])
 
 
+def mesh_only(torch) -> int:
+    """``python chip_smoke.py --mesh``: the ``mesh`` phase alone, on the
+    infer phase's set-up (checkpoint, songs) and the int8 phase's prewarmed
+    engine, for checking the two-card branch on a machine with two cards
+    without the rest. Prints the phase's results; it is not the smoke test
+    (it prints no ``ok`` line)."""
+    from some_tpu_torch.infer import load_engine
+    from some_tpu_torch.ops import _build
+
+    _build.build()
+    log(f"{torch.cuda.device_count()} cards: {torch.cuda.get_device_name(0)}")
+    with tempfile.TemporaryDirectory(prefix="some_tpu_torch_mesh_") as tmp:
+        work = pathlib.Path(tmp)
+        setup = infer_setup(work)
+        for precision in ("bf16", "32-true"):
+            model_dir(work, setup, "default", precision, False, False)
+        engine = load_engine(model_dir(work, setup, "default-int8", "bf16", False, True),
+                             device="cuda", quiet=True)
+        engine.prewarm(setup["buckets"])
+        setup["int8_engine"] = engine
+        t0 = time.perf_counter()
+        results, launches = mesh_check(torch, work, setup)
+        results["phase_s"] = time.perf_counter() - t0
+        log(f"phase mesh: {results['phase_s']:.1f} s")
+    print(json.dumps({"mesh": results, "launches": launches}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3861,6 +4205,8 @@ def main() -> int:
     # every f32 comparison below is in true f32: no TF32 in matmuls or cuDNN
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--mesh"]:
+        return mesh_only(torch)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -3910,6 +4256,7 @@ def main() -> int:
     rows["fused_ln_ffn_residual"] = phase("check_fused_ffn", check_fused_ffn, torch)
     rows["splash_attention"] = phase("check_splash", check_splash, torch)
     rows.update(phase("check_splash_backward", check_splash_backward, torch))
+    rows["replica_max"] = [phase("check_replica_max", check_replica_max, torch)]
     report_tensor_core_kernels(rows, hmma)
     routes = phase("routes", check_routes, torch)
 
@@ -3984,11 +4331,13 @@ def main() -> int:
         ("splash_attention", "splash_attention.cu", f"{splash_py}:696"),
         ("splash_attention_fwd_res", "splash_attention.cu", f"{splash_py}:696"),
         ("splash_attention_bwd_dkv", "splash_attention_bwd.cu", f"{splash_py}:1669"),
-        ("splash_attention_bwd_dq", "splash_attention_bwd.cu", f"{splash_py}:1307"))
+        ("splash_attention_bwd_dq", "splash_attention_bwd.cu", f"{splash_py}:1307"),
+        # no TPU kernel: the counterpart of GSPMD's all-reduce of this max
+        ("replica_max", "replica_max.cu", "some_tpu/ops/quant.py:40"))
 
     def entry(name, source, replaces):
         head = rows[name][0]  # [8, ...] bf16: the production dtype at a main-path batch
-        by_path = {path: counts[name] for path, counts in launches.items()}
+        by_path = {path: counts.get(name, 0) for path, counts in launches.items()}
         tensor_core = [kernel for _, kernel, wrapper in TENSOR_CORE_KERNELS if wrapper == name]
         return {"name": name, "route": "cuda", "source": f"some_tpu_torch/csrc/{source}",
                 "bf16_hmma": ({n: c for n, c in hmma.items() if tensor_core[0] in n}
@@ -3998,7 +4347,7 @@ def main() -> int:
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "launches_per_train_step": {
-                    **{tag: results[f"train_{tag}"]["launches_per_step"][name]
+                    **{tag: results[f"train_{tag}"]["launches_per_step"].get(name, 0)
                        for tag in ("default", "opt_in", "discrete")},
                     **{f"remat_{tag}": policy["launches"].get(name, 0)
                        for tag, policy in results["train_rest"]["remat"].items()}},

@@ -11,15 +11,16 @@ geometry, so its FLOPs. The timed pass is split into
   rmvpe_s          the whole pitch path (16 kHz mel, forwards, decode, grid)
   rmvpe_forward_s  the forwards alone, the card synchronised after each
   host_other_s     labels, alignment, the HDF5 write, everything else
+  hdf5_write_s     of that, the writer's own calls (each item's datasets, the
+                   files' metadata at the end)
 
 ``rmvpe_programs`` counts the distinct (rows, frames) shapes the forwards
 met (each is a cuDNN plan, chosen on first use), ``rmvpe_forwards`` the
-forwards. Where h5py imports, the pass is ``process()`` and writes the
-HDF5 files; where it does not, the pass runs all of
-``process()`` but the write (``load``, then ``item_groups`` over both
+forwards. The pass is ``process()``, which writes the HDF5 files with the
+port's own codec (``data/hdf5.py``); ``timed_pass(write=False)`` runs all
+of ``process()`` but the write (``load``, then ``item_groups`` over both
 splits: ``prepare_items`` and ``process_item``; the coverage summary
-too), and the line says
-``"hdf5_write": false``.
+too), and its line says ``"hdf5_write": false``.
 
     python -m some_tpu_torch.bench_binarize [--items 8] [--device cpu]
 
@@ -112,26 +113,18 @@ def save_random_rmvpe(path: pathlib.Path, seed: int = 0) -> pathlib.Path:
     return path
 
 
-def _h5py_available() -> bool:
-    try:
-        import h5py  # noqa: F401
-    except ImportError:
-        return False
-    return True
-
-
-def timed_pass(config: dict, device, write: bool | None = None):
+def timed_pass(config: dict, device, write: bool = True):
     """One binarize pass with the split timed, on the path the binarizer
     runs (bucketed, batched RMVPE forwards); returns (the numbers,
-    {prefix: [item groups]}). ``write`` None: write the HDF5 files where
-    h5py imports."""
+    {prefix: [item groups]}, the items as ``process_item`` made them, also
+    those the pass wrote)."""
+    from some_tpu_torch.data.indexed_dataset import IndexedDatasetWriter
     from some_tpu_torch.nn.rmvpe import RMVPE
     from some_tpu_torch.preprocessing.me_binarizer import MIDIExtractionBinarizer
 
     device = torch.device(device)
-    write = _h5py_available() if write is None else write
     rmvpe = RMVPE.cached(config["pe_ckpt"], device=device)
-    acc = {"units": 0.0, "rmvpe": 0.0, "fwd": 0.0}
+    acc = {"units": 0.0, "rmvpe": 0.0, "fwd": 0.0, "write": 0.0}
     shapes, forwards = set(), []
 
     def sync():
@@ -163,10 +156,21 @@ def timed_pass(config: dict, device, write: bool | None = None):
     to_grid = RMVPE.__dict__["f0_to_grid"]
     # the grid resample runs outside f0_batch, from the cache
     RMVPE.f0_to_grid = staticmethod(timed(to_grid.__func__, "rmvpe"))
+    writer_calls = {name: getattr(IndexedDatasetWriter, name) for name in ("add_item", "finalize")}
+    for name, fn in writer_calls.items():
+        setattr(IndexedDatasetWriter, name, timed(fn, "write"))
     groups = {}
+    item_groups = binarizer.item_groups
+
+    def kept_groups(prefix, *args, **kwargs):
+        for group in item_groups(prefix, *args, **kwargs):
+            groups.setdefault(prefix, []).append(group)
+            yield group
+
     try:
         t0 = time.perf_counter()
         if write:
+            binarizer.item_groups = kept_groups
             binarizer.process()
         else:
             binarizer.load()
@@ -178,11 +182,13 @@ def timed_pass(config: dict, device, write: bool | None = None):
         wall = time.perf_counter() - t0
     finally:
         RMVPE.f0_to_grid = to_grid
+        for name, fn in writer_calls.items():
+            setattr(IndexedDatasetWriter, name, fn)
         for name in ("_forward", "get_pitch", "f0_batch"):
             rmvpe.__dict__.pop(name, None)
     return {"wall_s": wall, "units_mel_s": acc["units"], "rmvpe_s": acc["rmvpe"],
             "rmvpe_forward_s": acc["fwd"],
-            "host_other_s": wall - acc["units"] - acc["rmvpe"],
+            "host_other_s": wall - acc["units"] - acc["rmvpe"], "hdf5_write_s": acc["write"],
             "rmvpe_programs": len(shapes), "rmvpe_forwards": len(forwards),
             "rmvpe_shapes": sorted(str(s) for s in shapes), "hdf5_write": write}, groups
 

@@ -1,8 +1,9 @@
 """Binarization CLI: raw DiffSinger dataset -> indexed binary dataset.
 
 Counterpart of the JAX package's ``binarize.py``, with the same flag and
-output: ``binary_data_dir`` gets ``{train,valid}.data`` (HDF5, which needs
-h5py) and ``.lengths``, which ``python -m some_tpu_torch.train`` reads.
+output: ``binary_data_dir`` gets ``{train,valid}.data`` (HDF5, written by
+the port's own codec, ``data/hdf5.py``: no h5py) and ``.lengths``, which
+``python -m some_tpu_torch.train`` reads.
 RMVPE pitch and ContentVec units run on the GPU unless ``--device cpu``;
 without a card and without ``--device`` it raises.
 

@@ -38,15 +38,22 @@ Dispatch, as the JAX engine's:
   silence and split into equal contiguous shards, one a replica; every
   replica is launched before any output is waited on, and the outputs come
   back as one dict on the first replica's device, rows in the caller's
-  order (the padding rows last, decoding to no notes). One wire policy
-  serves the mesh: probed on the first device, flipped on every replica at
-  once.
+  order (the padding rows last, decoding to no notes). On the card each
+  replica launches on a stream of its own. One wire policy serves the mesh:
+  probed on the first device, flipped on every replica at once. With
+  ``quantize: int8`` the replicas form a ``ReplicaGroup``
+  (``ops/replica_max.py``): every int8 site's activation scale is the max
+  over every replica's shard, the JAX mesh's one scale for the whole
+  bucket; the CPU replicas then run their shards in N threads, and a
+  bucket's first run on the card captures at once.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit device it raises rather than fall back.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 import pathlib
 import sys
@@ -58,11 +65,21 @@ import numpy as np
 import torch
 
 from some_tpu_torch.audio.wire import check_wire, encode_wire, silence_buffer
+from some_tpu_torch.nn.conformer import set_replica_member
 from some_tpu_torch.nn.model import build_midi_extractor
 from some_tpu_torch.ops._build import on_device
 from some_tpu_torch.ops.quant import adopt_int8_layout, quantize_params
+from some_tpu_torch.ops.replica_max import ReplicaGroup, launching, replica_stream
 from some_tpu_torch.parallel.mesh import pad_rows, split_rows
 from some_tpu_torch.utils.checkpoint import load_state_dict
+
+#: int8 sites a graph segment holds on an int8 mesh (``_Segments``): some
+#: 380 of the production forward's 3,800 graph nodes. On an H100 a graph
+#: launch behind a waiting exchange returned with 3,000 kernel nodes and
+#: blocked the host with 4,000 (``tools/torch_mesh_probe.py queue``); a
+#: replica has at most two segments queued ahead of its peers' exchanges,
+#: some 760 nodes, a quarter of the 3,000 that returned
+SITES_PER_GRAPH = 16
 
 DEFAULT_BUCKETS = (128, 192, 256, 384, 512, 768, 1024, 1536, 2048, 3072, 4096,
                    6144, 8192, 12288, 16384, 24576, 32768)
@@ -101,10 +118,52 @@ def pick_batch_bucket(n_rows: int, cap: int, buckets=DEFAULT_BATCH_BUCKETS) -> i
 
 
 class _BucketGraph:
-    """One captured pipeline: its static inputs, the graph, its static outputs."""
+    """One captured pipeline: its static inputs, its graphs (one, or on an
+    int8 mesh one a segment, replayed in order), its static outputs."""
 
-    def __init__(self, audio: torch.Tensor, mask: torch.Tensor, graph, out: dict):
-        self.audio, self.mask, self.graph, self.out = audio, mask, graph, out
+    def __init__(self, audio: torch.Tensor, mask: torch.Tensor, graphs: list, out: dict):
+        self.audio, self.mask, self.graphs, self.out = audio, mask, graphs, out
+
+    @property
+    def graph(self):
+        """The first (on one engine, the only) graph."""
+        return self.graphs[0]
+
+
+class _Segments:
+    """What ``torch.cuda.graph`` captures into on a replica of an int8 mesh:
+    CUDA graphs one after another in one pool, a new one after every
+    ``SITES_PER_GRAPH`` int8 sites (``site``). A graph launch pushes its
+    nodes to the card's queue behind the replica's spinning exchange, and
+    CUDA takes only so many before the launch blocks the host: one graph of
+    a whole production forward (some 3,800 nodes) blocked replica 0's
+    launch on an H100 before replica 1's was made. Launching each replica
+    from a thread of its own does not help: the peer's exchange, launched
+    from another thread while that launch was blocked, did not run, and the
+    waiting exchange trapped (``tools/torch_mesh_probe.py queue``). The
+    mesh replays the segments replica by replica (``run_bucket_staged``),
+    so each replica has at most two segments queued ahead of its peers'
+    exchanges."""
+
+    def __init__(self):
+        self.graphs, self.sites = [], 0
+
+    def capture_begin(self, *args, **kwargs):
+        """``CUDAGraph.capture_begin``'s arguments, as ``torch.cuda.graph``
+        passes them, kept for each segment."""
+        self._args = args, kwargs
+        self.graphs.append(torch.cuda.CUDAGraph())
+        self.graphs[-1].capture_begin(*args, **kwargs)
+
+    def capture_end(self):
+        self.graphs[-1].capture_end()
+
+    def site(self):
+        self.sites += 1
+        if self.sites % SITES_PER_GRAPH == 0:
+            self.capture_end()
+            args, kwargs = self._args
+            self.capture_begin(*args, **kwargs)
 
 
 def set_dispatch(engine: "BaseInference", mode: str) -> None:
@@ -146,6 +205,7 @@ class BaseInference:
         self.timestep = config["hop_size"] / config["audio_sample_rate"]
         self._graphs: Dict[tuple, _BucketGraph] = {}
         self._visits: Dict[tuple, int] = {}
+        self._eager_warm = set()  # buckets warmed up for eager dispatch on an int8 mesh
         self._pool = None  # the graphs' one memory pool, made at the first capture
         self._graph_dispatch = True
         self._capture_lock = threading.Lock()
@@ -192,6 +252,28 @@ class BaseInference:
         # state dict filling them all
         self._peers = () if mesh is None else tuple(
             self._replica(d, state_dict) for d in mesh.devices[1:])
+        #: one bucket run of the mesh at a time: each replica meets its peers'
+        #: exchanges in one order
+        self._round_lock = threading.Lock()
+        #: this replica's place in the mesh's int8 group (None: no exchange)
+        self._member = None
+        #: the stream this replica launches on (None: the current stream)
+        self._compute = None
+        if self._peers:
+            self._join_mesh()
+
+    def _join_mesh(self) -> None:
+        """Give each replica of the mesh its stream on the card, and, with
+        int8 weights, its member of one ``ReplicaGroup``."""
+        replicas = self.replicas
+        group = (ReplicaGroup([r.device for r in replicas]) if self.model.quant == "int8"
+                 else None)
+        for i, replica in enumerate(replicas):
+            if replica.device.type == "cuda":
+                replica._compute = replica_stream(replica.device)
+            if group is not None:
+                replica._member = group.members[i]
+                set_replica_member(replica.model, replica._member)
 
     def _replica(self, device: torch.device, state_dict) -> "BaseInference":
         """A whole engine on ``device`` serving this one's mesh: built with
@@ -333,6 +415,7 @@ class BaseInference:
         too."""
         self._graphs.clear()
         self._visits.clear()
+        self._eager_warm.clear()
         self._pool = None
 
     def maybe_reprobe_wire(self) -> None:
@@ -399,6 +482,13 @@ class BaseInference:
             ready.record(staging)
         return audio_dev, mask_dev, ready
 
+    def alone(self):
+        """A context in which this replica of an int8 mesh runs its shard
+        against a group of one (``ReplicaMember.run_alone``): ``_run`` of one
+        replica, as a test or a graph print does. A no-op elsewhere."""
+        return (contextlib.nullcontext() if self._member is None
+                else self._member.run_alone())
+
     @torch.inference_mode()
     def run_bucket_staged(self, audio, mask, ready=None, frames: bool = False,
                           capture: bool = False) -> dict:
@@ -413,54 +503,174 @@ class BaseInference:
         None) hold one shard a replica. Each replica runs its shard with its
         device current; all are launched before any output is waited on.
         The outputs are gathered on the first replica's device in mesh
-        order, which is the caller's row order: a replica on another card is
-        copied from behind its replay, since a copy between cards runs on the
-        source card's current stream (the replica's compute stream) and the
-        first card's current stream waits for it, with no device
-        synchronised."""
+        order, which is the caller's row order.
+
+        A round of the mesh, one at a time: on the card every replica first
+        finds or captures its graph (a capture synchronises the card), then
+        every replica launches on its own stream (an int8 mesh's eager
+        forwards from N threads, paced site by site:
+        ``ReplicaGroup.run_threads``; its graphs segment by segment, replica
+        by replica: ``_Segments``), then each hands back its outputs and the
+        current stream of its device waits for its stream;
+        a replica on another card is copied from behind its replay, since a
+        copy between cards orders the two cards' current streams, with no
+        device synchronised. On the CPU the replicas of an int8 mesh run in
+        N threads, which meet at every int8 site; the others one after
+        another."""
         replicas = self.replicas
         if len(replicas) == 1:
             return self._run(audio, mask, ready, frames, capture)
         readies = (None,) * len(replicas) if ready is None else ready
-        outs = [r._run(a, m, e, frames, capture)
-                for r, a, m, e in zip(replicas, audio, mask, readies)]
+        jobs = list(zip(replicas, audio, mask, readies))
+        with self._round_lock:
+            if self.device.type == "cuda":
+                entries = [r._entry(a, m, capture) for r, a, m, _ in jobs]
+                launch = [functools.partial(r._launch, entry, a, m, e, replay=False)
+                          for (r, a, m, e), entry in zip(jobs, entries)]
+                with launching():
+                    if self._member is not None and entries[0] is None:
+                        # eager on an int8 mesh: the forwards paced in N threads
+                        outs = self._member.group.run_threads(launch)
+                    else:
+                        outs = [fn() for fn in launch]
+                    # graphs: segment by segment (one, off an int8 mesh), replica by replica
+                    segments = max((len(entry.graphs) for entry in entries if entry is not None),
+                                   default=0)
+                    for k in range(segments):
+                        for r, entry in zip(replicas, entries):
+                            r._replay(entry, k)
+                outs = [r._collect(entry, out, frames)
+                        for (r, *_), entry, out in zip(jobs, entries, outs)]
+            elif self._member is not None:
+                outs = self._member.group.run_threads(
+                    [lambda r=r, a=a, m=m: r._run_shard(a, m, frames) for r, a, m, _ in jobs])
+            else:
+                outs = [r._run_shard(a, m, frames) for r, a, m, _ in jobs]
         return {k: torch.cat([out[k].to(self.device) for out in outs]) for k in outs[0]}
 
     @torch.inference_mode()
     def _run(self, audio: torch.Tensor, mask: torch.Tensor, ready, frames: bool,
              capture: bool) -> dict:
-        """``run_bucket_staged`` on this engine's own device, made current."""
-        keys = self.OUTPUT_KEYS + (self.FRAME_KEYS if frames else ())
+        """``run_bucket_staged`` on this engine's own device alone, made
+        current. A replica of an int8 mesh refuses, unless under
+        :meth:`alone`: it would wait at its first int8 site for peers that
+        never come, and leave its counter behind theirs."""
+        if self._member is not None and self._member.exchanges:
+            raise RuntimeError(
+                f"replica {self._member.rank} of an int8 mesh of {self._member.group.size} "
+                "runs only with its peers (run_bucket_staged of the mesh), or under "
+                "alone() against a group of one")
+        entry = self._entry(audio, mask, capture)
+        return self._collect(entry, self._launch(entry, audio, mask, ready), frames)
+
+    @torch.inference_mode()
+    def _run_shard(self, audio: torch.Tensor, mask: torch.Tensor, frames: bool) -> dict:
+        """One CPU replica's part of a mesh round: its shard, eagerly."""
+        return self._collect(None, self._launch(None, audio, mask, None), frames)
+
+    def _entry(self, audio: torch.Tensor, mask: torch.Tensor, capture: bool):
+        """The bucket's captured graph on the card, capturing it on its
+        ``CAPTURE_ON_VISIT``-th run (at once with ``capture``, and on a
+        replica of an int8 mesh, whose eager run would meet its peers'
+        exchanges while first-time host work runs); None to run eagerly."""
         if self.device.type != "cuda":
-            out = self._device_pipeline(audio, mask)
-            self.forwards += 1
-            return {k: out[k] for k in keys}
+            return None
+        key = (self.wire, *mask.shape)
+        if not self._graph_dispatch:
+            # eager dispatch on an int8 mesh: a bucket's first run on this
+            # replica's stream is warmed up against a group of one first
+            if self._member is not None and key not in self._eager_warm:
+                self._eager_warm.add(key)
+                with on_device(self.device.index):
+                    self._warm_up(*self._static_inputs(audio.shape, audio.dtype, mask.shape),
+                                  self._compute)
+            return None
+        entry = self._graphs.get(key)
+        if entry is None:
+            visit = self._visits[key] = self._visits.get(key, 0) + 1
+            if capture or visit >= self.CAPTURE_ON_VISIT or self._member is not None:
+                with on_device(self.device.index):
+                    entry = self._capture(audio.shape, audio.dtype, mask.shape)
+        return entry
+
+    @torch.inference_mode()
+    def _launch(self, entry, audio: torch.Tensor, mask: torch.Tensor, ready,
+                replay: bool = True) -> dict:
+        """Launch the pipeline on the staged inputs, on this replica's stream
+        (the current one for a lone engine): the graphs' replays (unless
+        ``replay`` is False: then only the inputs' copies, for ``_replay``),
+        or the eager pipeline when ``entry`` is None. Returns its outputs,
+        not copied."""
+        self.forwards += 1
+        if self.device.type != "cuda":
+            return self._device_pipeline(audio, mask)
         with on_device(self.device.index):
-            compute = torch.cuda.current_stream(self.device)
+            current = torch.cuda.current_stream(self.device)
+            compute = self._compute or current
+            if compute is not current:
+                compute.wait_stream(current)
             if ready is not None:
                 compute.wait_event(ready)
             # the staged tensors were allocated on the staging stream
             audio.record_stream(compute)
             mask.record_stream(compute)
-            entry = None
-            if self._graph_dispatch:
-                key = (self.wire, *mask.shape)
-                entry = self._graphs.get(key)
+            with torch.cuda.stream(compute):
                 if entry is None:
-                    visit = self._visits[key] = self._visits.get(key, 0) + 1
-                    if capture or visit >= self.CAPTURE_ON_VISIT:
-                        entry = self._capture(audio.shape, audio.dtype, mask.shape)
-            if entry is None:
-                out = self._device_pipeline(audio, mask)
-                self.forwards += 1
-                return {k: out[k] for k in keys}
-            entry.audio.copy_(audio)
-            entry.mask.copy_(mask)
-            entry.graph.replay()
-            self.forwards += 1
-            # another replay writes these static outputs, or memory of the
-            # shared pool that they lie in: hand back copies
-            return {k: entry.out[k].clone() for k in keys}
+                    return self._device_pipeline(audio, mask)
+                entry.audio.copy_(audio)
+                entry.mask.copy_(mask)
+                for graph in entry.graphs if replay else ():
+                    graph.replay()
+                return entry.out
+
+    def _replay(self, entry: _BucketGraph, k: int) -> None:
+        """Replay segment ``k`` of a captured bucket on this replica's stream."""
+        with on_device(self.device.index), torch.cuda.stream(self._compute):
+            entry.graphs[k].replay()
+
+    def _collect(self, entry, out: dict, frames: bool) -> dict:
+        """The outputs the caller gets from one ``_launch``: a graph's are
+        copied (another replay writes its static outputs, or memory of the
+        shared pool that they lie in); the current stream of the device
+        waits for this replica's stream."""
+        keys = self.OUTPUT_KEYS + (self.FRAME_KEYS if frames else ())
+        if self.device.type != "cuda":
+            return {k: out[k] for k in keys}
+        with on_device(self.device.index):
+            current = torch.cuda.current_stream(self.device)
+            compute = self._compute or current
+            with torch.cuda.stream(compute):
+                out = {k: (out[k] if entry is None else out[k].clone()) for k in keys}
+            if compute is not current:
+                current.wait_stream(compute)
+                for value in out.values():
+                    value.record_stream(current)
+        return out
+
+    def _static_inputs(self, audio_shape, audio_dtype, mask_shape):
+        """A bucket's rows of wire silence and its all-False mask on the
+        device, checked against the staged rows' shape and dtype."""
+        rows, frames = mask_shape
+        n_samples = frames * self.hop - 1
+        audio = torch.from_numpy(silence_buffer(self.wire, rows, n_samples)).to(self.device)
+        if tuple(audio.shape) != tuple(audio_shape) or audio.dtype != audio_dtype:
+            raise ValueError(f"wire rows {tuple(audio_shape)} {audio_dtype} do not fit the "
+                             f"{self.wire} bucket ({rows}, {frames}): want "
+                             f"{tuple(audio.shape)} {audio.dtype}")
+        return audio, torch.zeros(mask_shape, dtype=torch.bool, device=self.device)
+
+    def _warm_up(self, audio: torch.Tensor, mask: torch.Tensor, stream) -> None:
+        """One eager run of the pipeline on ``stream``, its outputs thrown
+        away: it makes the first-call host work (the kernels' launch plans
+        and CUDA entry points, cuFFT's plans, cuBLAS's handles and the
+        stream's workspaces). On an int8 mesh it runs against a group of
+        one: some of that work waits for the card, which must not happen
+        while a peer's exchange waits on it for this replica."""
+        current = torch.cuda.current_stream(self.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream), self.alone():
+            self._device_pipeline(audio, mask)
+        current.wait_stream(stream)
 
     def _capture(self, audio_shape, audio_dtype, mask_shape) -> _BucketGraph:
         """Capture the pipeline of one (wire, rows, frames) bucket. One
@@ -484,26 +694,23 @@ class BaseInference:
             entry = self._graphs.get(key)
             if entry is not None:
                 return entry
-            rows, frames = mask_shape
-            n_samples = frames * self.hop - 1
-            audio = torch.from_numpy(silence_buffer(self.wire, rows, n_samples)).to(self.device)
-            if tuple(audio.shape) != tuple(audio_shape) or audio.dtype != audio_dtype:
-                raise ValueError(f"wire rows {tuple(audio_shape)} {audio_dtype} do not fit the "
-                                 f"{self.wire} bucket ({rows}, {frames}): want "
-                                 f"{tuple(audio.shape)} {audio.dtype}")
-            mask = torch.zeros(mask_shape, dtype=torch.bool, device=self.device)
+            audio, mask = self._static_inputs(audio_shape, audio_dtype, mask_shape)
             side = self._streams[1]
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                self._device_pipeline(audio, mask)
-            torch.cuda.current_stream(self.device).wait_stream(side)
+            self._warm_up(audio, mask, side)
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self._pool, stream=side,
-                                  capture_error_mode="thread_local"):
-                out = self._device_pipeline(audio, mask)
-            entry = _BucketGraph(audio, mask, graph, out)
+            member = self._member
+            segments = _Segments()
+            if member is not None and member.exchanges:
+                member.on_site = segments.site
+            try:
+                with torch.cuda.graph(segments, pool=self._pool, stream=side,
+                                      capture_error_mode="thread_local"):
+                    out = self._device_pipeline(audio, mask)
+            finally:
+                if member is not None:
+                    member.on_site = None
+            entry = _BucketGraph(audio, mask, segments.graphs, out)
             self._graphs[key] = entry
             return entry
 

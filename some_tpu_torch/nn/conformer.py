@@ -48,7 +48,9 @@ With ``quant='int8'`` (serving only) the model runs the int8 products of
 ``ops/quant.py`` wherever ``quantize_params`` gave a ``QDense`` int8
 weights: each such Dense quantizes its input per tensor, except that the
 attention's q and kv projections share one quantization of their input. A
-quantized model never fuses its FFNs (K3 reads f32 weights), as in JAX.
+quantized model never fuses its FFNs (K3 reads f32 weights), as in JAX. On
+a serving mesh each int8 site takes its scale over every replica's shard
+(:func:`set_replica_member`, ``ops/replica_max.py``).
 
 Masks: attention excludes padded keys, the conv module zeroes padded frames
 before the depthwise conv, and MidiConformer re-masks the midi stream after
@@ -183,7 +185,9 @@ class QDense(nn.Linear):
     ``ops/quant.quantize_params`` has replaced the weight by an int8 buffer
     and its per-channel ``weight_scale``, the input is quantized on the fly
     and the product runs int8 x int8 -> int32. The bias is added in
-    ``dtype`` either way."""
+    ``dtype`` either way. ``replica``: see :func:`set_replica_member`."""
+
+    replica = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -197,7 +201,7 @@ class QDense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         if self.is_int8:
-            y = dynamic_int8_dense(x, self.weight, self.weight_scale, dt)
+            y = dynamic_int8_dense(x, self.weight, self.weight_scale, dt, self.replica)
         else:
             y = F.linear(x.to(dt), self.weight.to(dt))
         return y if self.bias is None else y + self.bias.to(dt)
@@ -242,6 +246,8 @@ class SelfAttention(nn.Module):
     to the attention as [B, H, T, D] strided views, and its output comes back
     in [B, T, H, D] storage, so neither side copies."""
 
+    replica = None
+
     def __init__(self, dim: int, heads: int, head_dim: int, dtype: torch.dtype,
                  attn_impl: str = "auto"):
         super().__init__()
@@ -259,7 +265,7 @@ class SelfAttention(nn.Module):
         H, D = self.heads, self.head_dim
         if self.q_proj.is_int8:
             # one dynamic quantization of x, shared by q and kv (as in JAX)
-            xq, sx = quantize_activation(x)
+            xq, sx = quantize_activation(x, self.replica)
             q = int8_matmul(xq, sx, self.q_proj.weight, self.q_proj.weight_scale,
                             self.compute_dtype)
             kv = int8_matmul(xq, sx, self.kv_proj.weight, self.kv_proj.weight_scale,
@@ -444,6 +450,16 @@ def set_sync_batch_stats(model: nn.Module, sync: bool) -> None:
     for module in model.modules():
         if isinstance(module, MaskedBatchNorm):
             module.sync_stats = sync
+
+
+def set_replica_member(model: nn.Module, member) -> None:
+    """Give every int8 site of ``model`` (each ``QDense`` and the attention's
+    shared q/kv quantization) a serving mesh replica's ``ReplicaMember``
+    (``ops/replica_max.py``), whose group takes each site's amax over every
+    replica's shard; None takes it over this model's input alone."""
+    for module in model.modules():
+        if isinstance(module, (QDense, SelfAttention)):
+            module.replica = member
 
 
 def set_kernel_impl(model: nn.Module, impl: str) -> None:

@@ -28,7 +28,7 @@ BUILD_DIR = CSRC.parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("depthwise_conv", "flash_attention", "flash_attention_bwd", "fused_ffn",
-           "splash_attention", "splash_attention_bwd")
+           "replica_max", "splash_attention", "splash_attention_bwd")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

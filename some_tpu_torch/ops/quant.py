@@ -8,7 +8,9 @@ Counterpart of ``some_tpu/ops/quant.py``, with its scheme:
   ``weight_scale`` buffer ``[out]`` in place of its f32 parameter;
 * activations: one dynamic per-tensor scale over the whole tensor, computed
   on the device (:func:`quantize_activation`). The amax covers every row of
-  a bucket, padding rows included, as in the JAX package;
+  a bucket, padding rows included, as in the JAX package; on a serving mesh
+  every replica's shard too (``ops/replica_max.py``: the max over the
+  replicas, as GSPMD's all-reduce under the JAX engine's mesh);
 * products: int8 x int8 with an int32 accumulator, then one f32 rescale
   ``acc * (sx * sw)`` and a cast to the output dtype (:func:`int8_matmul`).
 
@@ -48,11 +50,15 @@ def quantize_weight(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return q, scale
 
 
-def quantize_activation(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_activation(x: torch.Tensor, replica=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-tensor symmetric int8: (int8 x, f32 0-d scale). ``round``
-    is half to even, as ``jnp.round``."""
+    is half to even, as ``jnp.round``. ``replica`` (a mesh replica's
+    ``ReplicaMember``) takes the amax over every replica's shard first."""
     xf = x.float()
-    sx = torch.clamp(xf.abs().amax() / 127.0, min=1e-8)
+    amax = xf.abs().amax()
+    if replica is not None:
+        amax = replica.max(amax)
+    sx = torch.clamp(amax / 127.0, min=1e-8)
     xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     return xq, sx
 
@@ -67,9 +73,10 @@ def int8_matmul(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor, sw: torch.
 
 
 def dynamic_int8_dense(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
-                       out_dtype: torch.dtype) -> torch.Tensor:
-    """Quantize ``x`` on the fly and run the int8 product (no bias)."""
-    xq, sx = quantize_activation(x)
+                       out_dtype: torch.dtype, replica=None) -> torch.Tensor:
+    """Quantize ``x`` on the fly (over ``replica``'s group, if given) and run
+    the int8 product (no bias)."""
+    xq, sx = quantize_activation(x, replica)
     return int8_matmul(xq, sx, wq, sw, out_dtype)
 
 

@@ -11,8 +11,8 @@ the binarizer's ``device``: the card unless ``"cpu"``. With ``num_workers >
 0`` the items go to a pool of spawned processes (never forked: a forked
 child of a process that holds a CUDA context cannot use the card), each of
 which builds its own binarizer through ``binarizer_class``.
-``item_groups`` yields what ``process()`` writes, so a caller without h5py
-can run everything but the HDF5 write.
+``item_groups`` yields what ``process()`` writes, so a caller can run
+everything but the HDF5 write (``bench_binarize.timed_pass(write=False)``).
 """
 from __future__ import annotations
 

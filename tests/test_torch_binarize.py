@@ -229,8 +229,8 @@ def test_label_utils_bit_for_bit():
 
 def test_bench_binarize_line_and_pass_without_the_write(tmp_path):
     """The CPU line has the bench's keys and writes the HDF5 files; the pass
-    without the write (for a machine without h5py) yields what
-    process() writes, item for item."""
+    without the write yields what process() writes, item for item, and the
+    pass with the write keeps the items it wrote and times the writer."""
     from some_tpu_torch import bench_binarize
 
     line = bench_binarize.measure("cpu", items=2, min_s=1.5, max_s=2.5)
@@ -246,7 +246,14 @@ def test_bench_binarize_line_and_pass_without_the_write(tmp_path):
     config = bench_binarize.bench_config(raw, tmp_path / "binary", ckpt, units_dim=80)
     stats, groups = bench_binarize.timed_pass(config, "cpu", write=False)
     assert stats["hdf5_write"] is False and not (tmp_path / "binary" / "train.data").exists()
-    MIDIExtractionBinarizer(dict(config), device="cpu").process()
+    stats, kept = bench_binarize.timed_pass(config, "cpu")
+    assert stats["hdf5_write"] is True and stats["hdf5_write_s"] > 0
+    for prefix in ("train", "valid"):
+        for group, want in zip(kept[prefix], groups[prefix], strict=True):
+            for item, want_item in zip(group, want, strict=True):
+                assert item.keys() == want_item.keys()
+                for key, value in want_item.items():
+                    np.testing.assert_array_equal(item[key], value, err_msg=key)
     written = read_binary(tmp_path / "binary")
     for prefix in ("train", "valid"):
         items = [item for group in groups[prefix] for item in group]
