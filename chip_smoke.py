@@ -41,11 +41,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      opt-in configuration, each followed by inference from its checkpoint;
      a kernel-vs-plain train step for each; an f32 loss that falls;
   5b. training, the rest (``train_rest``), in default bf16 from launch
-     counts at 0: from the default train phase's checkpoint (finetuning),
-     ``accumulate_grad_batches: 2`` with ``in_proj_midi`` frozen, 6
-     micro-steps straight through twice and 3 + an interrupt + a resume to
-     6 (no farther from a straight run than the two straight runs are from
-     each other; the frozen weights bit for bit); one validation forward's
+     counts at 0: from the default train phase's checkpoint cut to 2 layers
+     (finetuning), ``accumulate_grad_batches: 2`` with ``in_proj_midi`` frozen, 6
+     micro-steps straight through and 3 + an interrupt + a resume to 6 (bit
+     for bit with the straight run; the frozen weights bit for bit); one
+     validation forward's
      outputs decoded on the card and on the CPU (integers equal, values to
      f32 rounding); finetuning from a reference Lightning file with
      ``bound_head`` ignored (every other leaf the file's) and two steps;
@@ -55,6 +55,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
      ``save_attn_conv`` with splash; the profile window (a trace holding K1
      and K2 records, the step count after it); two steps in a one-process
      NCCL group equal to two without one, bit for bit;
+  5c. the compiled train and valid steps (``train_graph``), from launch
+     counts at 0: one CUDA graph per batch bucket and accumulation
+     position (a bucket's second visit captures its step) against the
+     test-only eager dispatch from equal seeded states, at production width
+     in bf16, default and opt-in, over two buckets in turns (8 x 2048 and
+     8 x 1024, 6 steps): losses, grad_norm, every parameter, BatchNorm
+     statistic, AdamW moment and step count, bit for bit; each step graph's
+     hand-written kernel nodes (K1 34 / dx 18 / dw 18, K2 or K4 fwd+res 34 /
+     dk,dv 18 / dq 18); the valid step graph against eager with its graphs'
+     nodes; capture seconds, the pools' GiB, the replay's and the eager
+     step's wall and device time; then the same bit-for-bit check under
+     each other remat policy, with accumulation 2 and a frozen projection,
+     in a one-process NCCL group and for the discrete task. The train
+     phases above run under the same default dispatch: a replayed step's
+     launches are held as its graph's kernel nodes;
   6. what users bring: ``quantize: int8`` (one cuBLASLt int8 product held
      bit for bit against int64 and timed against bf16; the infer path as in
      4 for the default configuration in bf16 and f32 and the opt-in one in
@@ -64,11 +79,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      farther than the CPU's dft; the spectrum's times with its products in
      f32 and in f64, beside cuFFT's; notes, the mels' device time);
      the engine's
-     oversize split (frame buckets cut at 256) graph vs eager; the discrete
+     oversize split (frame buckets cut at 256; 2 layers) graph vs eager; the discrete
      model (configs/discrete.yaml, 129 classes) through the infer CLI and
      ``Trainer.fit`` in bf16 with launch counts per step; a reference
      Lightning checkpoint (tests/torch_oracle.py's ``OracleModel`` at
-     production width) through ``load_engine``, its f32 forward against
+     production width, 2 layers) through ``load_engine``, its f32 forward against
      ``OracleModel``'s;
   6b. the serving surfaces in default bf16 (``surfaces``), each from launch
      counts at 0: the host's split of a warm file pass per song (WAV
@@ -100,10 +115,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      steps of the default model on the card's items; ContentVec at full
      HuBERT-base width, card against CPU and padded against unpadded;
   6d. export (``export``), from the default bf16 checkpoint at production
-     width: bucket 512 exported on the card as a ``torch.export`` program
+     width cut to its first 2 dual-stream layers: bucket 512 exported on the
+     card as a ``torch.export`` program
      (``some_tpu_torch.deployment.export``), loaded and run twice on a 5.5 s
-     song from launch counts at 0 (K1 18 and K2 18 a forward; the opt-in
-     configuration K1 18, K3 36 and K4 18), against the exporter's engine
+     song from launch counts at 0 (K1 6 and K2 6 a forward; the opt-in
+     configuration K1 6, K3 12 and K4 6), against the exporter's engine
      under eager dispatch; the ONNX bridge's graph of the same weights
      (traced on the CPU) read by the port's ``onnx_inspect`` and executed by
      its numpy ``onnx_run`` on 3 s of the song against the eager ONNX
@@ -111,9 +127,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
   7. the engine in default bf16: a prewarm of every bucket up to 4096
      frames at rows 1-8 (its seconds and memory), and the infer CLI's cold
      case, a fresh process's ``load_engine`` + ``transcribe_file``, under
-     the default dispatch, eager dispatch and capture on first use;
+     the default dispatch, eager dispatch and capture on first use (one
+     process each);
   8. the port's bench (``some_tpu_torch.bench``), shortened.
-Each phase's seconds are printed, and the total.
+Each phase's seconds are printed, and the total; each log line starts
+with the seconds since the script started. A seeded initialization of the
+port is drawn once and loaded by later inits of the same shapes
+(``cache_inits``).
 Prints the train_rest phase's JSON line, the bench's, one JSON line of
 kernel measurements, one of path results and, last, ``{"ok": true,
 "device": {...}}``. Imports nothing
@@ -142,10 +162,35 @@ REPO = pathlib.Path(__file__).resolve().parent
 SR = 44100
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 CUDA cores
+# the dual-stream layers the paths that check the same at any depth keep
+# (cut_depth): export, oversize_split, lightning, the accumulation check
+SHALLOW_LAYERS = 2
 
 
 def log(*args):
-    print(*args, flush=True)
+    """A line of the run's log, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - START:7.1f} s]", *args, flush=True)
+
+
+def cache_inits():
+    """Draw each seeded initialization of the port (``nn/init.init_model``,
+    which the tasks' ``init_state`` runs) once in this process: a later
+    init of the same parameter shapes, seed and options loads the first
+    one's weights (seconds a production-width model on the host)."""
+    from some_tpu_torch.training import base_task
+
+    plain, cache = base_task.init_model, {}
+
+    def init_model(model, seed, remat=True, torch_style=True):
+        key = (tuple((k, tuple(v.shape)) for k, v in model.state_dict().items()), seed, remat,
+               torch_style)
+        if key in cache:
+            model.load_state_dict(cache[key])
+        else:
+            plain(model, seed, remat=remat, torch_style=torch_style)
+            cache[key] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    base_task.init_model = init_model
 
 
 def median_ms(torch, fn, reps=20, warmup=3):
@@ -247,11 +292,19 @@ def hmma_counts(libs, nvcc: str):
     (mma.sync) and HGMMA (wgmma, K3's), keyed by mangled name; the
     CUDA-core kernels beside them count 0. Raises if a tensor-core kernel
     has none."""
+    from concurrent.futures import ThreadPoolExecutor
+
     cuobjdump = str(pathlib.Path(nvcc).parent / "cuobjdump")
-    counts = {}
-    for lib in sorted({lib for lib, _, _ in TENSOR_CORE_KERNELS}):
-        sass = subprocess.run([cuobjdump, "-sass", str(libs[lib])], capture_output=True,
+
+    def sass_of(lib):
+        return subprocess.run([cuobjdump, "-sass", str(libs[lib])], capture_output=True,
                               text=True, check=True).stdout
+
+    counts = {}
+    names = sorted({lib for lib, _, _ in TENSOR_CORE_KERNELS})
+    with ThreadPoolExecutor(len(names)) as pool:  # one cuobjdump a library, all at once
+        listings = list(pool.map(sass_of, names))
+    for sass in listings:
         for block in sass.split("Function : ")[1:]:
             counts[block.split()[0]] = sum("HMMA" in line or "HGMMA" in line
                                            for line in block.splitlines())
@@ -793,8 +846,6 @@ def infer_setup(workdir: pathlib.Path):
 # copies and fills: a replay's static-input copies and output clones, and the
 # zero fills that a capture issues as kernels where eager dispatch memsets
 COPY_OR_FILL = ("memcpy", "memset", "direct_copy_kernel", "fillfunctor")
-# the launch configuration that opens in a kernel node's label of the CUDA driver's DOT print
-LAUNCH = "\\<\\<\\<"
 
 
 def kernel_names(torch, run):
@@ -859,12 +910,12 @@ def profiled_replay(torch, engine, staged, per_forward: dict, sessions: int = 5)
 def graph_kernel_nodes(torch, engine, audio, mask) -> dict:
     """The kernel nodes of a bucket's graph by name, counted in the graph
     itself: the bucket is captured again with its cudaGraph_t kept
-    (``CUDAGraph(keep_graph=True)``) and printed by the CUDA driver
-    (``cuGraphDebugDotPrint``, verbose), one line a kernel node; the
-    engine's own graph for the bucket is put back after. The bucket runs on
-    the engine's own device alone, so a mesh's replica (its first one
-    included) shows its own graph of a shard."""
-    import ctypes
+    (``CUDAGraph(keep_graph=True)``) and its kernel nodes read through the
+    CUDA driver (``utils/profiling.graph_kernel_nodes``); the engine's own
+    graph for the bucket is put back after. The bucket runs on the engine's
+    own device alone, so a mesh's replica (its first one included) shows its
+    own graph of a shard."""
+    from some_tpu_torch.utils import profiling
 
     class KeptGraph(torch.cuda.CUDAGraph):
         def __new__(cls, keep_graph=False):
@@ -883,21 +934,11 @@ def graph_kernel_nodes(torch, engine, audio, mask) -> dict:
     kept = engine._graphs.pop(key)
     if saved is not None:
         engine._graphs[key] = saved
-    driver = ctypes.CDLL("libcuda.so.1")
-    driver.cuGraphDebugDotPrint.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint]
-    driver.cuGraphDebugDotPrint.restype = ctypes.c_int
-    with tempfile.TemporaryDirectory(prefix="some_tpu_torch_graph_") as tmp:
-        dot = pathlib.Path(tmp) / "graph.dot"
-        err = driver.cuGraphDebugDotPrint(kept.graph.raw_cuda_graph(), str(dot).encode(), 1)
-        if err != 0:
-            raise RuntimeError(f"cuGraphDebugDotPrint: CUDA driver error {err}")
-        text = dot.read_text()
     counts = {}
-    # a kernel node's label ends "| <mangled name>\<\<\<{grid},block,smem\>\>\>}"
-    for line in text.splitlines():
-        if LAUNCH in line:
-            name = line.split(LAUNCH)[0].rsplit("|", 1)[-1].strip()
-            counts[name] = counts.get(name, 0) + 1
+    with torch.cuda.device(engine.device):
+        for segment in kept.graphs:
+            for name, n in profiling.graph_kernel_nodes(segment).items():
+                counts[name] = counts.get(name, 0) + n
     return counts
 
 
@@ -1959,16 +2000,29 @@ def in_memory_task(config, train_items, valid_items, device="cuda"):
 
 def recording_task(config, device="cuda"):
     """The port's task of ``config`` (``train.TASKS``), whose train steps
-    keep their seconds, losses and launches (``step_records``) and whose
-    validation forwards their launches (``valid_launches``)."""
+    keep their seconds, losses, launches, dispatch ('eager', 'capture' or
+    'replay') and, for a replay, its graph's hand-written kernel nodes
+    (``step_records``), and whose validation forwards the same
+    (``valid_launches``: launches, ``valid_dispatch``: (dispatch, nodes))."""
     from some_tpu_torch.train import TASKS
+    from some_tpu_torch.utils.profiling import hand_written_nodes
 
     class RecordingTask(TASKS[config["task_cls"]]):
+        def replay_nodes(self, training):
+            """A replay's graph nodes (counted once a graph), else None."""
+            if self.last_dispatch != "replay":
+                return None
+            entry = self.last_graph
+            if id(entry) not in self.nodes:
+                self.nodes[id(entry)] = (entry, hand_written_nodes(entry.graph, training))
+            return self.nodes[id(entry)][1]
+
         def valid_step(self, state, batch):
             before = read_counts()
             out = super().valid_step(state, batch)
             after = read_counts()
             self.valid_launches.append({n: after[n] - before[n] for n in after})
+            self.valid_dispatch.append((self.last_dispatch, self.replay_nodes(False)))
             return out
 
         def train_step(self, state, batch):
@@ -1984,13 +2038,27 @@ def recording_task(config, device="cuda"):
                 "s": time.perf_counter() - t0, "rows": int(batch["size"]),
                 "T": int(batch["units"].shape[1]), "frames": int(batch["mask"].sum()),
                 "total_loss": float(logs["total_loss"]), "grad_norm": float(logs["grad_norm"]),
-                "launches": {n: after[n] - before[n] for n in after}})
+                "launches": {n: after[n] - before[n] for n in after},
+                "dispatch": self.last_dispatch, "graph_nodes": self.replay_nodes(True)})
             return logs
 
     task = RecordingTask(config, device=device)
     task.step_records = []
     task.valid_launches = []
+    task.valid_dispatch = []
+    task.nodes = {}
     return task
+
+
+def check_step_launches(label, launches, dispatch, nodes, want):
+    """An eager or capturing step launches ``want`` (a replay calls no
+    wrapper) and a replay's graph holds ``want`` as kernel nodes."""
+    if dispatch == "replay":
+        if any(launches.values()) or nodes != {n: c for n, c in want.items() if c}:
+            raise AssertionError(f"{label}: a replay launched {launches} from a graph of "
+                                 f"hand-written kernel nodes {nodes}, want {want}")
+    elif launches != want:
+        raise AssertionError(f"{label} ({dispatch}) launched {launches}, want {want}")
 
 
 def production_config(name="midi_conformer.yaml", **overrides):
@@ -2008,7 +2076,9 @@ def train_path(torch, workdir: pathlib.Path, n_steps: int, opt_in: bool = False,
     dropout 0.1) on 64 synthetic items of 600-2000 frames, batches of up to
     8 rows bucketed to 128 frames; validation and a checkpoint at the last
     step; then the infer path loads that checkpoint and transcribes a song.
-    Launches are held per train step and per validation forward. ``opt_in``
+    Launches are held per train step and per validation forward, a replay's
+    as its graph's kernel nodes (the default dispatch: a bucket's second
+    visit captures its step, later visits replay it). ``opt_in``
     adds ``fuse_ffn: true`` and ``attention_impl: splash``: the steps run
     K4 and no K3 (training runs the unfused FFN, as in JAX), the validation
     forwards run K3 and K4's inference kernel. ``discrete``: the quantized
@@ -2067,11 +2137,13 @@ def train_path(torch, workdir: pathlib.Path, n_steps: int, opt_in: bool = False,
     want = {name: per_step.get(name, 0) for name in launched}
     want_valid = {name: per_valid.get(name, 0) for name in launched}
     for i, rec in enumerate(records):
-        if rec["launches"] != want:
-            raise AssertionError(f"{tag} train step {i} launched {rec['launches']}, want {want}")
-    if not task.valid_launches or any(v != want_valid for v in task.valid_launches):
-        raise AssertionError(f"{tag} validation forwards launched {task.valid_launches}, want "
-                             f"{want_valid} each")
+        check_step_launches(f"{tag} train step {i}", rec["launches"], rec["dispatch"],
+                            rec["graph_nodes"], want)
+    if not task.valid_launches:
+        raise AssertionError(f"{tag}: no validation forward")
+    for launches_v, (dispatch, nodes) in zip(task.valid_launches, task.valid_dispatch):
+        check_step_launches(f"{tag} validation forward", launches_v, dispatch, nodes,
+                            want_valid)
     if any(launched[name] == 0 for name in set(per_step) | set(per_valid)):
         raise AssertionError(f"a kernel of the {tag} train path never launched: {launched}")
     losses = [r["total_loss"] for r in records]
@@ -2083,15 +2155,18 @@ def train_path(torch, workdir: pathlib.Path, n_steps: int, opt_in: bool = False,
     log(f"{tag} train path: {n_steps} steps in {fit_s:.1f} s (fit, validation and checkpoint); "
         f"launches per step { {n: c for n, c in want.items() if c} } on every step, per "
         f"validation forward { {n: c for n, c in want_valid.items() if c} } on each of "
-        f"{len(task.valid_launches)}; warm step median {step_ms:.1f} ms (synchronized per "
+        f"{len(task.valid_launches)} (a replay's as its graph's nodes); dispatch "
+        f"{[r['dispatch'] for r in records]}; warm step median {step_ms:.1f} ms (synchronized per "
         f"step), {frames_per_s:.0f} frames/s; peak {peak_gib:.2f} GiB; losses "
         f"{[round(x, 4) for x in losses]}; validation {trainer.last_validation}")
 
     # device busy share of one more step on the largest bucket, against the
-    # unprofiled wall of the same step
+    # unprofiled wall of the same step; two steps first, so its graph is
+    # captured and the timed steps replay it
     big = max(range(len(train_items) // 8), key=lambda i: max(
         train_items[j]["length"] for j in range(8 * i, 8 * i + 8)))
     batch = task.to_device(task.collate(train_items[8 * big: 8 * big + 8]))
+    task.train_step(state, batch)
     task.train_step(state, batch)
     walls = []
     for _ in range(3):
@@ -2102,6 +2177,7 @@ def train_path(torch, workdir: pathlib.Path, n_steps: int, opt_in: bool = False,
     profiled["busy_share_of_unprofiled_wall"] = (profiled["device_ms"] / 1e3
                                                  / statistics.median(walls))
     profiled["batch"] = [int(batch["size"]), int(batch["units"].shape[1])]
+    profiled["dispatch"] = task.last_dispatch
     log(f"{tag} train step profile: " + json.dumps(profiled))
 
     ckpt = latest_checkpoint(work)
@@ -2166,7 +2242,10 @@ def kernel_vs_plain_step(torch, opt_in: bool = False):
     them, so their gradient is 0 in exact arithmetic and float noise in both
     paths, whose norm must stay below 0.01 (f32) or 0.1 (bf16) x the
     model's gradient RMS x sqrt(size)."""
+    import copy
+
     from some_tpu_torch.nn.conformer import set_kernel_impl
+    from some_tpu_torch.training.base_task import TrainState
 
     tag = "opt-in" if opt_in else "default"
     items = synthetic_items(9, 4, 80, lo=900, hi=1100)
@@ -2177,10 +2256,14 @@ def kernel_vs_plain_step(torch, opt_in: bool = False):
         config["midi_extractor_args"] = dict(config["midi_extractor_args"], conv_drop=0.0,
                                              ffn_latent_drop=0.0, ffn_out_drop=0.0,
                                              attention_drop=0.0)
-        runs = {}
+        runs, start = {}, None
         for impl in ("kernel", "plain"):
             task = in_memory_task(config, items, items)
-            state = task.init_state(seed=11)
+            if start is None:  # the plain run takes a copy of the kernel run's start
+                state = task.init_state(seed=11)
+                start = copy.deepcopy(state.model)
+            else:
+                state = TrainState(start, None)
             set_kernel_impl(state.model, "auto" if impl == "kernel" else impl)
             batch = task.collate(items)
             reset_counts()
@@ -2189,6 +2272,7 @@ def kernel_vs_plain_step(torch, opt_in: bool = False):
             if (impl == "plain") == any(counts.values()):
                 raise AssertionError(f"{tag} {precision} {impl} path launches {counts}")
             del task, state
+        del start
         (logs_k, grads_k), (logs_p, grads_p) = runs["kernel"], runs["plain"]
         for key in logs_k:
             if abs(logs_k[key] - logs_p[key]) > rel_log * abs(logs_p[key]):
@@ -2378,32 +2462,35 @@ def interrupt_at(task, call: int):
 
 def accumulate_resume_frozen(torch, workdir: pathlib.Path, source: pathlib.Path, items):
     """Queue 3's open item on the card. From the default train phase's
-    checkpoint (``finetune_ckpt_path``), with ``accumulate_grad_batches: 2``
+    checkpoint cut to its first ``SHALLOW_LAYERS`` layers
+    (``finetune_ckpt_path``), with ``accumulate_grad_batches: 2``
     and ``model.backbone.in_proj_midi`` frozen: 6 micro-steps (3 updates)
-    straight through, twice; then 3, an interrupt (the accumulator half
-    full), and a resume to 6. The resumed run is no farther from the first
-    straight run than the second is (bit for bit where those two are);
-    the frozen projection keeps the file's values bit for bit in every run.
+    straight through; then 3, an interrupt (the accumulator half full), and
+    a resume to 6, which captures its step graphs again. The resumed run
+    equals the straight one bit for bit (a step is deterministic: two
+    straight runs were equal bit for bit, so a second one is not made); the
+    frozen projection keeps the file's values bit for bit in every run.
     Only the interrupt's checkpoint is written (the resume reads it); the
     runs' final weights are taken from memory."""
     from some_tpu_torch.training.trainer import Trainer
     from some_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
-    weights = load_checkpoint(source)["state_dict"]  # the weights alone: a third of the file
+    # the weights alone (a third of the file), cut to SHALLOW_LAYERS layers
+    config, weights = cut_depth(production_config(), load_checkpoint(source)["state_dict"],
+                                SHALLOW_LAYERS)
     source = save_checkpoint(workdir / "accumulate-source.ckpt", weights)
     frozen = {k: v for k, v in weights.items() if k.startswith("backbone.in_proj_midi.")}
     del weights
-    config = production_config(accumulate_grad_batches=2, freezing_enabled=True,
-                               frozen_params=["model.backbone.in_proj_midi"],
-                               finetune_enabled=True, finetune_ckpt_path=str(source),
-                               val_check_interval=1000, num_sanity_val_steps=0,
-                               log_interval=1000)
+    config.update(accumulate_grad_batches=2, freezing_enabled=True,
+                  frozen_params=["model.backbone.in_proj_midi"], finetune_enabled=True,
+                  finetune_ckpt_path=str(source), val_check_interval=1000,
+                  num_sanity_val_steps=0, log_interval=1000)
     def no_final_checkpoint(trainer):
         trainer._save_ckpt = lambda *args: None
         return trainer
 
     finals = {}
-    for run in ("straight_a", "straight_b", "resumed"):
+    for run in ("straight", "resumed"):
         work = workdir / f"accumulate-{run}"
         task = in_memory_task(config, items, items)
         if run == "resumed":
@@ -2430,24 +2517,25 @@ def accumulate_resume_frozen(torch, workdir: pathlib.Path, source: pathlib.Path,
         finals[run] = final
         del task, state
         torch.cuda.empty_cache()
-    straight = state_diff(torch, finals["straight_b"], finals["straight_a"])
-    resumed = state_diff(torch, finals["resumed"], finals["straight_a"])
-    log(f"accumulate 2 + frozen in_proj_midi, 6 micro-steps from the default checkpoint: two "
-        f"straight runs differ by {straight}; resumed at 3 vs straight: {resumed}")
-    if resumed["max_abs"] > straight["max_abs"]:
-        raise AssertionError(f"the resumed run is farther from a straight run ({resumed}) than "
-                             f"two straight runs are ({straight})")
-    return {"straight_vs_straight": straight, "resumed_vs_straight": resumed,
-            "frozen_bitwise": True}, finals["straight_a"]
+    resumed = state_diff(torch, finals["resumed"], finals["straight"])
+    log(f"accumulate 2 + frozen in_proj_midi, 6 micro-steps from the default checkpoint "
+        f"cut to {SHALLOW_LAYERS} layers: "
+        f"resumed at 3 vs straight: {resumed}")
+    if resumed["max_abs"] != 0:
+        raise AssertionError(f"the resumed run differs from the straight run: {resumed}")
+    return {"resumed_vs_straight": resumed, "frozen_bitwise": True}, finals["straight"]
 
 
-def validation_card_vs_cpu(torch, weights: dict, valid_items):
+def validation_card_vs_cpu(torch, weights: dict, valid_items, lay: int | None = None):
     """One validation forward on the card; the validation outputs (the note
     decode's ``index_add_`` segment sums, the cumsum and its round, the
     midi_acc counters) and the losses computed from that forward's outputs
     on the card and on the CPU. Integer outputs must be equal; note values
-    and losses within f32 rounding (|d| <= 1e-4 + 1e-6 |want| and rel 1e-5)."""
+    and losses within f32 rounding (|d| <= 1e-4 + 1e-6 |want| and rel 1e-5).
+    ``lay``: the weights' dual-stream layers, if not the production 8."""
     config = production_config()
+    if lay is not None:
+        config["midi_extractor_args"] = dict(config["midi_extractor_args"], lay=lay)
     task = in_memory_task(config, valid_items, valid_items)
     state = task.init_state()
     state.model.load_state_dict(weights)
@@ -2556,7 +2644,10 @@ def profile_window(torch, workdir: pathlib.Path, items):
     the trainer takes updates 1 and 2, the traced repeat of update 2's batch
     (counted as a step), and stops: 3 steps, 2 batches consumed (JAX's
     anchor rule). The trace file holds K1 and K2 kernel records, at least
-    one of each (torch.profiler may drop records)."""
+    one of each (torch.profiler may drop records); the traced step, the
+    batch's second visit, captures and replays its graph, whose hand-written
+    kernel nodes the trainer writes beside the trace
+    (``graph_kernel_nodes.json``): one train step's."""
     from some_tpu_torch.training.trainer import Trainer
     from some_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -2586,10 +2677,15 @@ def profile_window(torch, workdir: pathlib.Path, items):
         f"{ {k: meta[k] for k in ('micro_step', 'epoch', 'epoch_batch')} }")
     if not k1 or not k2:
         raise AssertionError(f"the trace holds no K1 or no K2 record: {groups}")
+    nodes = json.loads((profile_dir / "graph_kernel_nodes.json").read_text())
+    want = {n: c for n, c in train_step_launches(config, ALL_TRAIN_KERNELS).items() if c}
+    log(f"profile window: the traced step's graph ({nodes['dispatch']}) holds {nodes['kernels']}")
+    if nodes["dispatch"] not in ("capture", "replay") or nodes["kernels"] != want:
+        raise AssertionError(f"profile window: graph_kernel_nodes.json {nodes}, want {want}")
     del task, state
     torch.cuda.empty_cache()
     return {"trace_bytes": traces[0].stat().st_size, "kernel_records": len(kernels),
-            "hand_written_records": groups, "meta": meta}
+            "hand_written_records": groups, "meta": meta, "graph_kernel_nodes": nodes}
 
 
 def world_size_one(torch, items):
@@ -2672,7 +2768,7 @@ def train_rest(torch, workdir: pathlib.Path):
     result["accumulate_resume_frozen"], weights = check(
         "accumulate_resume_frozen", accumulate_resume_frozen, torch, workdir, source, items)
     result["validation_card_vs_cpu"] = check("validation_card_vs_cpu", validation_card_vs_cpu,
-                                             torch, weights, valid_items)
+                                             torch, weights, valid_items, SHALLOW_LAYERS)
     del weights
     result["finetune_lightning"] = check("finetune_lightning", finetune_from_lightning, torch,
                                          workdir, items)
@@ -2688,6 +2784,325 @@ def train_rest(torch, workdir: pathlib.Path):
             raise AssertionError(f"train_rest never launched {name}: {launched}")
     result.update(s=seconds, launches_by_check=by_check)
     return result, launched
+
+
+# ---- the compiled train and valid steps: graph dispatch against eager ----
+
+ALL_TRAIN_KERNELS = ("depthwise_conv1d", "depthwise_conv1d_dx", "depthwise_conv1d_dw",
+                     "flash_attention_fwd_res", "flash_attention_bwd_dkv",
+                     "flash_attention_bwd_dq", "splash_attention_fwd_res",
+                     "splash_attention_bwd_dkv", "splash_attention_bwd_dq")
+
+
+def per_valid_forward(config) -> dict:
+    """The hand-written kernels of one validation (eval-mode) forward."""
+    blocks = 2 * config["midi_extractor_args"]["lay"] + 2
+    if config.get("attention_impl") == "splash":
+        out = {"depthwise_conv1d": blocks, "splash_attention": blocks}
+        if config.get("fuse_ffn"):
+            out["fused_ln_ffn_residual"] = 2 * blocks
+        return out
+    return {"depthwise_conv1d": blocks, "flash_attention": blocks}
+
+
+def pool_gib(torch, pool) -> float:
+    """GiB of the segments the caching allocator holds for a graph pool."""
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == tuple(pool)) / 2 ** 30
+
+
+def graph_pair(torch, config, seed=11):
+    """A task on the default (graph) dispatch and one on the test-only eager
+    dispatch, each with a state of the same seeded weights (the eager one's
+    model a copy of the other's, not built again)."""
+    import copy
+
+    from some_tpu_torch.train import TASKS
+    from some_tpu_torch.training.base_task import TrainState, set_train_dispatch
+
+    graph, eager = TASKS[config["task_cls"]](config), TASKS[config["task_cls"]](config)
+    set_train_dispatch(eager, "eager")
+    state_g = graph.init_state(seed=seed)
+    model = copy.deepcopy(state_g.model)
+    return graph, state_g, eager, TrainState(model, eager.make_optimizer(model))
+
+
+def states_differ(torch, state_g, state_e) -> list:
+    """Names of what two train states hold that is not equal bit for bit:
+    parameters and BatchNorm statistics (``state_dict``), then AdamW's
+    moments and step counts, the lr and the accumulator."""
+    got = state_g.model.state_dict()
+    out = [k for k, v in state_e.model.state_dict().items() if not torch.equal(got[k], v)]
+    params = dict(state_e.model.named_parameters())
+    names = {p: n for n, p in params.items()}
+    got_params = dict(state_g.model.named_parameters())
+    for p, st in state_e.optimizer.state.items():
+        other = state_g.optimizer.state[got_params[names[p]]]
+        out += [f"{names[p]}.{key}" for key, v in st.items() if not torch.equal(other[key], v)]
+    if not torch.equal(state_g.lr, state_e.lr):
+        out.append("lr")
+    out += [f"acc.{k}" for k, v in (state_e.acc_grads or {}).items()
+            if not torch.equal(state_g.acc_grads[k], v)]
+    return out
+
+
+def graph_vs_eager_steps(torch, label, graph, state_g, eager, state_e, batches):
+    """Each batch through both tasks' train steps: the logs bit for bit at
+    every step, then the states (``states_differ``); every step graph's
+    hand-written kernel nodes equal one step's launches. Returns (dispatch
+    kinds, each capture step's synchronized seconds, nodes per graph)."""
+    from some_tpu_torch.utils.profiling import hand_written_nodes
+
+    kinds, capture_s = [], {}
+    for batch in batches:
+        batch = graph.to_device(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs_g = graph.train_step(state_g, batch)
+        torch.cuda.synchronize()
+        kinds.append(graph.last_dispatch)
+        if graph.last_dispatch == "capture":
+            capture_s["x".join(map(str, batch["units"].shape[:2]))] = time.perf_counter() - t0
+        logs_e = eager.train_step(state_e, batch)
+        differ = [k for k in logs_e if not torch.equal(logs_g[k], logs_e[k])]
+        if eager.last_dispatch != "eager" or differ:
+            raise AssertionError(f"{label}: step {len(kinds)} ({kinds[-1]}) logs {differ} differ "
+                                 f"from eager: {({k: float(logs_g[k]) for k in differ})} vs "
+                                 f"{({k: float(logs_e[k]) for k in differ})}")
+    differ = states_differ(torch, state_g, state_e)
+    if differ:
+        raise AssertionError(f"{label}: after {len(kinds)} steps {len(differ)} state tensors "
+                             f"differ from eager, e.g. {differ[:6]}")
+    want = {n: c for n, c in train_step_launches(graph.config, ALL_TRAIN_KERNELS).items() if c}
+    nodes = []
+    for key, entry in state_g.graphs.items():
+        if key[0][0] != "train":
+            continue
+        got = hand_written_nodes(entry.graph, training=True)
+        if got != want:
+            raise AssertionError(f"{label}: the step graph of {key[0]} holds hand-written "
+                                 f"kernel nodes {got}, want {want}")
+        nodes.append(got)
+    return kinds, capture_s, nodes
+
+
+def graph_vs_eager_valid(torch, label, graph, state_g, eager, state_e, batches):
+    """The valid step through both tasks from equal weights, each batch
+    visited three times (eager, capture, replay): losses and outputs bit
+    for bit (note_midi to f32 rounding: the decode's index_add_ is atomic);
+    each valid graph's kernel nodes equal one eval forward's."""
+    from some_tpu_torch.utils.profiling import hand_written_nodes
+
+    kinds, worst = [], 0.0
+    for batch in batches * 3:
+        batch = graph.to_device(batch)
+        (losses_g, extras_g), (losses_e, extras_e) = (graph.valid_step(state_g, batch),
+                                                      eager.valid_step(state_e, batch))
+        kinds.append(graph.last_dispatch)
+        differ = [k for k in losses_e if not torch.equal(losses_g[k], losses_e[k])]
+        differ += [k for k in extras_e if k != "note_midi"
+                   and not torch.equal(extras_g[k], extras_e[k])]
+        if differ:
+            raise AssertionError(f"{label}: valid step {len(kinds)} ({kinds[-1]}) differs from "
+                                 f"eager in {differ}")
+        worst = max(worst, float((extras_g["note_midi"] - extras_e["note_midi"]).abs().max()))
+    if worst > 1e-3:
+        raise AssertionError(f"{label}: valid note_midi graph vs eager {worst}")
+    want = per_valid_forward(graph.config)
+    nodes = [hand_written_nodes(e.graph, training=False)
+             for k, e in state_g.graphs.items() if k[0][0] == "valid"]
+    if len(nodes) != len(batches) or any(n != want for n in nodes):
+        raise AssertionError(f"{label}: valid graphs' kernel nodes {nodes}, want {want} each")
+    return {"kinds": kinds, "note_midi_max_abs": worst, "nodes": nodes[0]}
+
+
+def step_timing(torch, task, state, batch, reps=5):
+    """Median synchronized wall of ``reps`` steps on one batch, then one
+    profiled step's device time (CUDA activity) and busy share of that
+    median."""
+    batch = task.to_device(batch)
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        task.train_step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    prof = profile_pass(torch, lambda: (task.train_step(state, batch), torch.cuda.synchronize()))
+    wall_ms = statistics.median(walls) * 1e3
+    return {"wall_ms_median": wall_ms, "walls_ms": [w * 1e3 for w in walls],
+            "dispatch": task.last_dispatch, "device_ms": prof["device_ms"],
+            "busy_share": prof["device_ms"] / wall_ms, "by_group_ms": prof["by_group_ms"]}
+
+
+def fit_graph_vs_eager(torch, workdir: pathlib.Path, steps: int = 6):
+    """``Trainer.fit`` (what ``python -m some_tpu_torch.train`` runs) at
+    production width for ``steps`` steps on items of one bucket (8 x 1024,
+    40 notes), validating at the middle and the end on two one-row items of
+    one bucket, under the default dispatch and under the eager one: the
+    graph run's steps are eager, capture, then replays, its validation
+    forwards eager, capture, replay, replay; each step's and validation
+    forward's launches (a replay's as its graph's nodes) are one step's;
+    the two runs end with equal weights and optimizer state, bit for bit."""
+    from some_tpu_torch.training.base_task import set_train_dispatch
+    from some_tpu_torch.training.trainer import Trainer
+
+    rng = np.random.default_rng(29)
+    items = [make_item(rng, int(rng.integers(924, 1025)), 40, 80) for _ in range(24)]
+    valid = [make_item(rng, int(rng.integers(924, 1025)), 40, 80) for _ in range(2)]
+    config = production_config(val_check_interval=steps // 2, num_sanity_val_steps=0,
+                               log_interval=steps, max_val_batch_size=1)
+    want = train_step_launches(config, ALL_TRAIN_KERNELS)
+    want_valid = per_valid_forward(config)
+    runs = {}
+    for dispatch in ("graph", "eager"):
+        task = in_memory_task(config, items, valid)
+        if dispatch == "eager":
+            set_train_dispatch(task, "eager")
+        trainer = Trainer(task, workdir / f"fit-{dispatch}")
+        trainer._save_ckpt = lambda *args: None  # no checkpoint files: the states are compared
+        state = trainer.fit(max_steps=steps)
+        records = task.step_records
+        for i, rec in enumerate(records):
+            check_step_launches(f"fit {dispatch} step {i}", rec["launches"], rec["dispatch"],
+                                rec["graph_nodes"], {n: want.get(n, 0) for n in rec["launches"]})
+        for launches_v, (kind, nodes) in zip(task.valid_launches, task.valid_dispatch):
+            check_step_launches(f"fit {dispatch} validation", launches_v, kind, nodes,
+                                {n: want_valid.get(n, 0) for n in launches_v})
+        runs[dispatch] = ([r["dispatch"] for r in records], [d for d, _ in task.valid_dispatch],
+                          state, [r["s"] for r in records])
+    (kinds, valid_kinds, state_g, walls), (_, _, state_e, eager_walls) = runs["graph"], \
+        runs["eager"]
+    if kinds != ["eager", "capture"] + ["replay"] * (steps - 2) or valid_kinds != [
+            "eager", "capture", "replay", "replay"]:
+        raise AssertionError(f"fit: steps ran {kinds}, validation forwards {valid_kinds}")
+    differ = states_differ(torch, state_g, state_e)
+    if differ:
+        raise AssertionError(f"fit: the graph run's state differs from the eager run's in "
+                             f"{differ[:6]}")
+    out = {"steps": kinds, "validation": valid_kinds, "step_s_graph": walls,
+           "step_s_eager": eager_walls}
+    log("train_graph fit, Trainer.fit of 6 steps at 8 x 1024 (a bucket), the default dispatch "
+        "against the eager one: the state bit for bit; " + json.dumps(out))
+    return out
+
+
+def train_graph(torch, workdir: pathlib.Path, rows=8, frames=2048):
+    """The compiled train and valid steps (``base_task``: one CUDA graph per
+    batch bucket and accumulation position, captured at a bucket's second
+    visit) against the test-only eager dispatch, from equal seeded states:
+
+    * production width (configs/midi_conformer.yaml, bf16, remat, dropout
+      0.1), default and opt-in, two buckets in turns (``rows`` x ``frames``
+      and ``rows`` x ``frames`` / 2), 6 steps (eager, eager, capture,
+      capture, replay, replay): losses and grad_norm at every step, then
+      every parameter, BatchNorm statistic, AdamW moment and step count and
+      the lr, bit for bit; each step graph's hand-written kernel nodes (K1
+      34, dx 18, dw 18, K2 or K4 fwd+res 34, dk/dv 18, dq 18); the valid
+      step on two buckets, graph vs eager, with its graphs' nodes (K1 18, K2
+      18; opt-in K1 18, K3 36, K4 18); each bucket's capture seconds, the
+      train pool's GiB; the step wall (median of 5, synchronized) of the
+      replay and of the eager step, and each one's device time;
+    * the same bit-for-bit check, on one (8, 512) bucket over 3 steps, under
+      ``dots``, ``dots_no_batch`` and ``save_attn_conv``; with
+      ``accumulate_grad_batches: 2`` and ``in_proj_midi`` frozen over two
+      buckets in turns (6 micro-steps; the frozen weights unmoved); in a
+      one-process NCCL group; and for the discrete task (configs/
+      discrete.yaml, bf16), its valid step too;
+    * ``Trainer.fit`` under both dispatches (``fit_graph_vs_eager``)."""
+    import socket
+
+    from some_tpu_torch.parallel import distributed as dist
+
+    result = {}
+    big = synthetic_items(21, rows, 80, lo=frames - 100, hi=frames)
+    half = synthetic_items(22, rows, 80, lo=frames // 2 - 100, hi=frames // 2)
+    valid = [synthetic_items(23, 1, 80, lo=900, hi=1000), synthetic_items(24, 1, 80, lo=1900,
+                                                                          hi=2000)]
+    for opt_in in (False, True):
+        tag = "opt_in" if opt_in else "default"
+        t_case = time.perf_counter()
+        config = production_config(**(OPT_IN if opt_in else {}))
+        graph, state_g, eager, state_e = graph_pair(torch, config)
+        batches = [graph.collate(items) for items in (big, half) * 3]
+        torch.cuda.synchronize()
+        kinds, capture_s, nodes = graph_vs_eager_steps(torch, f"train_graph {tag}", graph,
+                                                       state_g, eager, state_e, batches)
+        if kinds != ["eager", "eager", "capture", "capture", "replay", "replay"]:
+            raise AssertionError(f"train_graph {tag}: steps ran {kinds}")
+        entry = {"kinds": kinds, "capture_s": capture_s, "step_graph_nodes": nodes[0],
+                 "train_pool_gib": pool_gib(torch, state_g.pools["train"])}
+        entry["valid"] = graph_vs_eager_valid(torch, f"train_graph {tag}", graph, state_g,
+                                              eager, state_e,
+                                              [graph.collate(items) for items in valid])
+        entry["valid_pool_gib"] = pool_gib(torch, state_g.pools["valid"])
+        entry["graph_step"] = step_timing(torch, graph, state_g, batches[0])
+        entry["eager_step"] = step_timing(torch, eager, state_e, batches[0])
+        if entry["graph_step"]["dispatch"] != "replay":
+            raise AssertionError(f"train_graph {tag}: the timed steps were not replays")
+        entry["s"] = time.perf_counter() - t_case
+        log(f"train_graph {tag}, {rows} x {frames} and {rows} x {frames // 2} bf16: 6 steps and "
+            f"the state bit for bit with eager; " + json.dumps(entry))
+        result[tag] = entry
+        del graph, state_g, eager, state_e, batches
+        torch.cuda.empty_cache()
+
+    a = synthetic_items(25, rows, 80, lo=412, hi=512)
+    b = synthetic_items(26, rows, 80, lo=284, hi=384)
+    cases = [(f"remat_{p}", production_config(remat_policy=p), [a] * 3)
+             for p in ("dots", "dots_no_batch", "save_attn_conv")]
+    cases.append(("accumulate_frozen", production_config(
+        accumulate_grad_batches=2, freezing_enabled=True,
+        frozen_params=["model.backbone.in_proj_midi"]), [a, b] * 3))
+    cases.append(("nccl_world_one", production_config(), [a] * 3))
+    discrete = production_config("discrete.yaml", pl_trainer_precision="bf16")
+    cases.append(("discrete", discrete, [synthetic_items(27, rows, 80, lo=412, hi=512,
+                                                         discrete=True)] * 3))
+    for name, config, item_batches in cases:
+        t_case = time.perf_counter()
+        grouped = name == "nccl_world_one"
+        if grouped:
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            os.environ.update(SOME_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                              SOME_TPU_NUM_PROCESSES="1", SOME_TPU_PROCESS_ID="0")
+        try:
+            if grouped and not (dist.maybe_initialize("cuda")
+                                and torch.distributed.get_backend() == "nccl"):
+                raise AssertionError("train_graph: no NCCL group of one")
+            graph, state_g, eager, state_e = graph_pair(torch, config)
+            frozen = (state_g.model.backbone.in_proj_midi.weight.detach().clone()
+                      if name == "accumulate_frozen" else None)
+            kinds, capture_s, nodes = graph_vs_eager_steps(
+                torch, f"train_graph {name}", graph, state_g, eager, state_e,
+                [graph.collate(items) for items in item_batches])
+            entry = {"kinds": kinds, "capture_s": capture_s, "step_graphs": len(nodes),
+                     "step_graph_nodes": nodes[0]}
+            if frozen is not None and not torch.equal(
+                    state_g.model.backbone.in_proj_midi.weight, frozen):
+                raise AssertionError("train_graph accumulate_frozen: the frozen weights moved")
+            if name == "discrete":
+                entry["valid"] = graph_vs_eager_valid(
+                    torch, f"train_graph {name}", graph, state_g, eager, state_e,
+                    [graph.collate(items) for items in (synthetic_items(
+                        28, 1, 80, lo=900, hi=1000, discrete=True),)])
+            replays = kinds.count("replay")
+            if not replays or (name == "accumulate_frozen" and len(nodes) != 2):
+                raise AssertionError(f"train_graph {name}: steps {kinds}, {len(nodes)} graphs")
+            del graph, state_g, eager, state_e
+        finally:
+            if grouped:
+                for key in ("SOME_TPU_COORDINATOR", "SOME_TPU_NUM_PROCESSES",
+                            "SOME_TPU_PROCESS_ID"):
+                    os.environ.pop(key, None)
+                dist.destroy()
+        torch.cuda.empty_cache()
+        entry["s"] = time.perf_counter() - t_case
+        log(f"train_graph {name}: bit for bit with eager; " + json.dumps(entry))
+        result[name] = entry
+    result["fit"] = fit_graph_vs_eager(torch, workdir)
+    return result
 
 
 # ---- serving what users bring: int8, the discrete model, the dft mel,
@@ -2958,8 +3373,8 @@ class AttributeDict(dict):
 
 def lightning_check(torch, workdir: pathlib.Path, setup: dict):
     """A reference Lightning checkpoint at production width: ``OracleModel``
-    (tests/torch_oracle.py, the reference's key layout, torch only; 8
-    layers, dim 512, 8 x 64 heads, k 31, 80 -> 128) with random BatchNorm
+    (tests/torch_oracle.py, the reference's key layout, torch only;
+    ``SHALLOW_LAYERS`` layers, dim 512, 8 x 64 heads, k 31, 80 -> 128) with random BatchNorm
     statistics from a seed, saved as ``{"state_dict": {"model." + k: v},
     "hyper_parameters": ...}`` with config.yaml beside it (32-true). Loaded
     through ``load_engine``; the port's f32 forward (kernels on) against
@@ -2974,6 +3389,7 @@ def lightning_check(torch, workdir: pathlib.Path, setup: dict):
     from some_tpu_torch.utils.midi_file import MidiFile
 
     config = dict(setup["config"], pl_trainer_precision="32-true")
+    config["midi_extractor_args"] = dict(config["midi_extractor_args"], lay=SHALLOW_LAYERS)
     args = config["midi_extractor_args"]
     torch.manual_seed(161803)
     oracle = OracleModel(args["lay"], args["dim"], config["units_dim"], config["midi_num_bins"],
@@ -3100,13 +3516,44 @@ def export_program(torch, label: str, config: dict, state: dict, out: pathlib.Pa
     return result, launched
 
 
+def cut_depth(config: dict, state: dict, lay: int) -> tuple:
+    """(config, state dict) of the model's first ``lay`` dual-stream layers
+    (the in-projections, the final blocks and the heads kept): the same
+    width at a smaller depth."""
+    layer = re.compile(r"(^|\.)layer_(\d+)\.")
+    state = {k: v for k, v in state.items()
+             if not (layer.search(k) and int(layer.search(k).group(2)) >= lay)}
+    config = dict(config, midi_extractor_args=dict(config["midi_extractor_args"], lay=lay))
+    return config, state
+
+
+def shallow_model(workdir: pathlib.Path, setup: dict) -> pathlib.Path:
+    """``workdir/default-bf16-shallow/model.pt``: the infer set-up's
+    checkpoint cut to its first ``SHALLOW_LAYERS`` dual-stream layers, with
+    its bf16 config beside it; written once."""
+    from some_tpu_torch.config import save_yaml
+    from some_tpu_torch.utils.checkpoint import load_state_dict, save_checkpoint
+
+    d = workdir / "default-bf16-shallow"
+    if not d.is_dir():
+        config, state = cut_depth(dict(setup["config"], pl_trainer_precision="bf16"),
+                                  load_state_dict(setup["ckpt"]), SHALLOW_LAYERS)
+        d.mkdir()
+        save_yaml(config, d / "config.yaml")
+        save_checkpoint(d / "model.pt", state)
+    return d / "model.pt"
+
+
 def export_check(torch, workdir: pathlib.Path):
     """The export path from the default bf16 checkpoint of the infer phase
-    (``default-bf16/model.pt``), at production width:
+    (``default-bf16/model.pt``), at production width and ``SHALLOW_LAYERS``
+    of its dual-stream layers (``cut_depth``: what exports is the same at
+    any depth, and tracing and saving 8 layers took most of a minute):
 
-    * pt2: ``export_program`` of the default configuration (K1 18 and K2 18
-      a forward) and of the opt-in one (``fuse_ffn``, ``attention_impl:
-      splash``: K1 18, K3 36, K4 18), each traced on the card at bucket 512;
+    * pt2: ``export_program`` of the default configuration (K1 and K2 once
+      a block: 6 each at 2 layers) and of the opt-in one (``fuse_ffn``,
+      ``attention_impl: splash``: K1 6, K3 12, K4 6), each traced on the
+      card at bucket 512;
     * onnx: ``export_onnx`` (traced on the CPU) of the same weights; its
       summary read by ``deployment/onnx_inspect.py`` (opset 17, the I/O
       names and dynamic axes, every load-bearing op, three ``Conv`` and five
@@ -3128,8 +3575,8 @@ def export_check(torch, workdir: pathlib.Path):
         f"{'exists' if has_hook else 'is missing'}; the onnx-less patch is verified on torch "
         f"{_PATCH_KNOWN_TORCH}")
     model = workdir / "default-bf16" / "model.pt"
-    config = load_yaml(model.with_name("config.yaml"))
-    state = load_state_dict(model)
+    config, state = cut_depth(load_yaml(model.with_name("config.yaml")),
+                              load_state_dict(model), SHALLOW_LAYERS)
     args = config["midi_extractor_args"]
     blocks = 2 * args["lay"] + 2
     song = export_song()
@@ -3201,7 +3648,8 @@ def onnx_check(torch, config: dict, state: dict, song: np.ndarray, workdir: path
 
 
 def oversize_split(torch, workdir: pathlib.Path, setup: dict):
-    """Song 0 through one default bf16 engine whose frame buckets stop at
+    """Song 0 through one default bf16 engine (``shallow_model``: production
+    width, ``SHALLOW_LAYERS`` layers) whose frame buckets stop at
     256, so each of its chunks splits at the bucket boundary and
     ``merge_parts`` joins the parts: graph dispatch (after prewarm) against
     eager on every group bit for bit with its graphs' kernels
@@ -3215,7 +3663,7 @@ def oversize_split(torch, workdir: pathlib.Path, setup: dict):
     from some_tpu_torch.utils.midi_file import MidiFile, midi_notes_to_arrays
     from some_tpu_torch.utils.note_f1 import note_f1
 
-    model = workdir / "default-bf16" / "model.pt"
+    model = shallow_model(workdir, setup)
     buckets = (128, 192, 256)
     wav = setup["wavs"][0]
     chunks = [c["waveform"] for c in slice_waveform(load_wav(wav, sr=SR)[0], SR)]
@@ -3231,7 +3679,7 @@ def oversize_split(torch, workdir: pathlib.Path, setup: dict):
         raise AssertionError(f"no chunk of song 0 split at bucket {buckets[-1]}: {n_parts}")
     n_graphs = engines["graph"].prewarm(sorted({mask.shape[1] for _, _, mask in groups}),
                                         rows=(1, 2, 3, 4, 6, 8))
-    blocks = setup["blocks"]
+    blocks = 2 * SHALLOW_LAYERS + 2
     per_forward = {"depthwise_conv1d": blocks, "flash_attention": blocks}
     dispatch = dispatch_check(torch, engines["graph"], engines["eager"], chunks, per_forward,
                               "oversize split")
@@ -4207,11 +4655,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:] == ["--mesh"]:
         return mesh_only(torch)
+    cache_inits()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    log(card)
+    print(card, flush=True)
     sm_clock_mhz = max_sm_clock_mhz()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
@@ -4277,6 +4726,14 @@ def main() -> int:
                 f"kernel_vs_plain_train_step_{tag}", kernel_vs_plain_step, torch, opt_in)
         results["train_rest"], launches["train_rest"] = phase("train_rest", train_rest, torch,
                                                               work)
+        reset_counts()
+        results["train_graph"] = phase("train_graph", train_graph, torch, work)
+        launches["train_graph"] = read_counts()
+        never = [n for n in ALL_TRAIN_KERNELS + ("depthwise_conv1d", "flash_attention",
+                                                 "fused_ln_ffn_residual", "splash_attention")
+                 if not launches["train_graph"][n]]
+        if never:
+            raise AssertionError(f"train_graph never launched {never}: {launches['train_graph']}")
         # int8 serving: the default configuration in bf16 and f32, the opt-in one in bf16
         for opt_in, precisions in ((False, ("bf16", "32-true")), (True, ("bf16",))):
             tag = ("opt_in" if opt_in else "default") + "_int8"
@@ -4304,7 +4761,8 @@ def main() -> int:
         # in the process, torch.profiler has missed a kernel record of a replay
         model = work / "default-bf16" / "model.pt"
         results["full_prewarm"] = phase("full_prewarm", full_prewarm, torch, model)
-        results["cold_cli"] = phase("cold_cli", cold_cli, torch, model, setup["wavs"][0], work)
+        results["cold_cli"] = phase("cold_cli", cold_cli, torch, model, setup["wavs"][0], work,
+                                    reps=1)
     results["f32_overfit"] = phase("f32_overfit", overfit_f32, torch)
 
     # the port's bench, shortened (2 batches a round, a 4-phrase song)
@@ -4351,6 +4809,13 @@ def main() -> int:
                        for tag in ("default", "opt_in", "discrete")},
                     **{f"remat_{tag}": policy["launches"].get(name, 0)
                        for tag, policy in results["train_rest"]["remat"].items()}},
+                "graph_nodes_per_train_step": {
+                    tag: case["step_graph_nodes"].get(name, 0)
+                    for tag, case in results["train_graph"].items()
+                    if "step_graph_nodes" in case},
+                "graph_nodes_per_valid_step": {
+                    tag: case["valid"]["nodes"].get(name, 0)
+                    for tag, case in results["train_graph"].items() if "valid" in case},
                 "max_abs_err": max(r["max_abs_diff"] for r in rows[name]),
                 "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

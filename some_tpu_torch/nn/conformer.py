@@ -8,7 +8,8 @@ adds is gated on ``self.training``:
 
   * dropout at the JAX sites (the FFN latent and output, the attention
     output, the conv module's output), each mask drawn from a generator
-    seeded by (seed, step, site) (see :class:`Dropout`);
+    seeded by (seed, step, site), in an eager step and in a captured one
+    alike (see :class:`Dropout`);
   * BatchNorm statistics over the real frames, and the running update;
   * with ``remat``, each dual-stream layer under
     ``torch.utils.checkpoint`` (``nn.remat`` in the JAX package). The
@@ -88,11 +89,23 @@ def _glu(x: torch.Tensor) -> torch.Tensor:
 
 class Dropout(nn.Module):
     """flax ``nn.Dropout``: keep with probability 1 - rate, scale what is kept
-    by 1 / (1 - rate). The mask comes from a generator seeded by the seed and
-    step of :func:`set_dropout_step` and the module's ``site`` (its index
-    among the model's dropouts), the counterpart of the JAX package's
-    ``fold_in(base_rng, step)``: the remat recompute draws the same mask, and
-    no global RNG state is read. The bits differ from JAX's."""
+    by 1 / (1 - rate). The mask comes from a generator seeded with the key of
+    the seed and step of :func:`set_dropout_step` and the module's ``site``
+    (its index among the model's dropouts), the counterpart of the JAX
+    package's ``fold_in(base_rng, step)``: no global RNG state is read. The
+    bits differ from JAX's.
+
+    Each module keeps one generator a draw of a step (``DRAWS``: the
+    forward's, and the remat recompute's, which so draws the forward's
+    mask). An eager forward seeds the draw's generator itself. A captured
+    step cannot seed inside the capture: the task registers the generators
+    with its graphs (:func:`dropout_generators`) and seeds them with the
+    step's keys before each replay (:func:`seed_dropout`), so each
+    generator draws once a replay from the offset 0 of its key, as the
+    eager forward does."""
+
+    #: draws of a step: the forward, and the recompute of a remat'd layer
+    DRAWS = 2
 
     def __init__(self, rate: float):
         super().__init__()
@@ -101,15 +114,41 @@ class Dropout(nn.Module):
         self.seed_step = None
         #: (first row, global rows): this process's rows of the global batch
         self.rows = None
+        #: draws since set_dropout_step
+        self.draws = 0
+        self._generators: list = []
+        self._generator_device = None
+
+    def key(self) -> int:
+        seed, step = self.seed_step
+        return ((seed * 1_000_003 + step) * 10_007 + self.site) % (1 << 63)
+
+    def generators(self, device: torch.device) -> list:
+        """The module's generators on ``device``, one a draw, made on first use."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if self._generator_device != device:
+            self._generators = [torch.Generator(device=device) for _ in range(self.DRAWS)]
+            self._generator_device = device
+        return self._generators
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         if self.seed_step is None:
             raise RuntimeError("a training forward needs set_dropout_step(model, seed, step)")
-        seed, step = self.seed_step
-        gen = torch.Generator(device=x.device)
-        gen.manual_seed(((seed * 1_000_003 + step) * 10_007 + self.site) % (1 << 63))
+        draw = self.draws
+        self.draws += 1
+        if x.is_cuda and torch.cuda.is_current_stream_capturing():
+            if draw >= self.DRAWS:  # a generator draws once a replay
+                raise RuntimeError(f"dropout site {self.site} drew {draw + 1} masks in one "
+                                   f"captured step, at most {self.DRAWS} (the forward and a "
+                                   "remat recompute)")
+            gen = self.generators(x.device)[draw]
+        else:
+            gen = self.generators(x.device)[draw % self.DRAWS]
+            gen.manual_seed(self.key())
         keep_prob = 1.0 - self.rate
         if self.rows is None:
             keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
@@ -120,14 +159,35 @@ class Dropout(nn.Module):
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _dropouts(model: nn.Module):
+    return [m for m in model.modules() if isinstance(m, Dropout)]
+
+
 def set_dropout_step(model: nn.Module, seed: int, step: int, rows=None) -> None:
     """Number the model's dropouts and key their masks to (seed, step);
     ``rows`` = (first row, global rows) when this process holds part of a
     global batch, so the masks are the one-process run's."""
-    for site, module in enumerate(m for m in model.modules() if isinstance(m, Dropout)):
+    for site, module in enumerate(_dropouts(model)):
         module.site = site
         module.seed_step = (int(seed), int(step))
         module.rows = rows
+        module.draws = 0
+
+
+def dropout_generators(model: nn.Module) -> list:
+    """Every generator the model's dropouts draw from on the model's device:
+    what a captured train step registers with its graph."""
+    device = next(model.parameters()).device
+    return [g for m in _dropouts(model) if m.rate > 0.0 for g in m.generators(device)]
+
+
+def seed_dropout(model: nn.Module) -> None:
+    """Seed each dropout's generators with its key of the step that
+    :func:`set_dropout_step` set: before a captured step's replay."""
+    for module in _dropouts(model):
+        if module.rate > 0.0:
+            for gen in module._generators:
+                gen.manual_seed(module.key())
 
 
 @functools.lru_cache(maxsize=None)
@@ -346,8 +406,8 @@ class MaskedBatchNorm(nn.Module):
                 count = torch.clamp(w.sum(), min=1.0)
                 mean = (xf * w).sum(dim=(0, 1)) / count
                 var = (((xf - mean) ** 2) * w).sum(dim=(0, 1)) / count
-            else:
-                count = torch.tensor(float(xf.shape[0] * xf.shape[1]), device=x.device)
+            else:  # a fill, not a copy from the host: it can be captured
+                count = torch.full((), float(xf.shape[0] * xf.shape[1]), device=x.device)
                 mean = xf.mean(dim=(0, 1))
                 var = xf.var(dim=(0, 1), unbiased=False)
             if not self.recomputing:

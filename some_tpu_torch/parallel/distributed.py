@@ -138,5 +138,8 @@ def all_sum_grads_(grads: List[torch.Tensor]) -> None:
 
 
 def destroy() -> None:
+    """Leave the process group. Release the captured train steps first
+    (``BaseTask.release_graphs``; ``Trainer.fit`` does): NCCL's teardown
+    waits for the CUDA graphs that captured its collectives."""
     if is_active():
         dist.destroy_process_group()

@@ -5,8 +5,11 @@ Counterpart of ``some_tpu/training/trainer.py``:
   * a deterministic epoch-seeded bucketed sampler, and collation to bucketed
     shapes, read and staged on the device by a prefetch thread
     (``ds_workers``: its lookahead depth; 0 reads in the loop);
-  * the task's train step, whose logs stay on the device until a log
-    interval reads them (``lr``, ``steps_per_sec``, the losses);
+  * the task's train step (on the card a CUDA graph per batch bucket from
+    its second visit, see ``base_task.py``), whose logs stay on the device
+    until a log interval reads them (``lr``, ``steps_per_sec``, the losses):
+    they are the step's own tensors, a replay's cloned out of its graph
+    before any later replay writes it;
   * validation and a checkpoint every ``val_check_interval`` updates, a final
     checkpoint, and one on SIGTERM or KeyboardInterrupt at the exact sampler
     position, so a resumed run replays the uninterrupted data order;
@@ -17,7 +20,13 @@ Counterpart of ``some_tpu/training/trainer.py``:
     from another run's weights (a port, JAX or reference Lightning file);
   * with ``profile_dir``, one extra traced step at ``step == log_interval``
     (``utils/profiling.trace``), counted so an interrupt inside it resumes
-    without losing or repeating a batch;
+    without losing or repeating a batch; on the card it replays the batch's
+    graph, whose hand-written kernels are counted from the graph's nodes
+    (``graph_kernel_nodes.json`` beside the trace: torch.profiler loses
+    records of replays);
+  * a resume or a finetune builds a new state, so every graph is captured
+    again from it; with several processes a fit releases its graphs when
+    it ends, before the caller destroys the process group;
   * several processes (``parallel/distributed.py``): each takes its rank's
     batches of the sampler, pads them to the shapes every rank's batch of
     the step needs (computed from the sampler without communication),
@@ -310,6 +319,7 @@ class Trainer:
 
                         with trace(profile_dir):
                             logs = self.task.train_step(state, batch)
+                        self._graph_launches(profile_dir, step)
                         micro_step += 1
                         step = micro_step // k
                     if micro_step % (self.log_interval * k) == 0:
@@ -345,12 +355,30 @@ class Trainer:
             if installed:  # a disposition set outside Python reads as None
                 signal.signal(signal.SIGTERM,
                               prev_handler if prev_handler is not None else signal.SIG_DFL)
+            if dist.is_active():  # before the caller destroys the group
+                self.task.release_graphs(state)
 
         final_step = state.step // k
         ckpts = list_checkpoints(self.work_dir)
         if not ckpts or final_step > ckpts[-1][0]:
             self._save_ckpt(final_step, state, anchor[0], epoch_batch)
         return state
+
+    def _graph_launches(self, profile_dir: str, step: int) -> None:
+        """The hand-written kernels of the graph the traced step replayed,
+        counted from its nodes, logged and written beside the trace."""
+        entry = self.task.last_graph
+        if entry is None:
+            return
+        import json
+
+        from some_tpu_torch.utils.profiling import hand_written_nodes
+
+        counts = hand_written_nodes(entry.graph, training=True)
+        log.info("profiled step %d (%s): hand-written kernel nodes %s", step,
+                 self.task.last_dispatch, counts)
+        (pathlib.Path(profile_dir) / "graph_kernel_nodes.json").write_text(json.dumps(
+            {"step": step, "dispatch": self.task.last_dispatch, "kernels": counts}))
 
     def _save_ckpt(self, step: int, state: TrainState, epoch: int, epoch_batch: int) -> None:
         """Process 0 writes (every process holds the same state)."""
