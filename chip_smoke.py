@@ -3855,7 +3855,7 @@ def serve_check(torch, engine, setup: dict, workdir: pathlib.Path) -> dict:
         f"batches (at most {stats['max_jobs_per_batch']} jobs), {engine.forwards - forwards} "
         f"graph replays; note F1 against the direct engine {[round(f, 4) for f in f1s]}, "
         f"{same} of {len(replies)} byte for byte; /healthz {health['status']}; /stats "
-        f"requests {stats['requests']}, RTF {stats['rtf']:.2f}x of device-call time")
+        f"requests {stats['requests']}, RTF {stats['infer_rtf']:.2f}x of engine.infer time")
     if min(f1s) < 0.95 or health["status"] != "ok" or stats["requests"] != len(replies):
         raise AssertionError(f"serve: F1 {f1s}, health {health}, stats {stats}")
     return {"requests": len(replies), "wall_s": wall, "f1_vs_direct": f1s,

@@ -47,6 +47,17 @@ Dispatch, as the JAX engine's:
   bucket; the CPU replicas then run their shards in N threads, and a
   bucket's first run on the card captures at once.
 
+* **What it ran.** ``forwards`` counts every run; ``bucket_counts()`` gives
+  each (wire, rows, frames) bucket's forwards by replay, capture and eager
+  run, its real frames (of the host masks that ``run_bucket`` and ``infer``
+  dispatch, counted there) and its launched frames, one set a replica. While the span recorder
+  (``utils/profiling``) records, ``infer`` marks its parts: ``engine:
+  bucket and wire-encode``, ``engine: stage`` (the dispatching thread's wait
+  for a group's staging), ``engine: launch`` (rows, frames, real frames,
+  how it ran), ``engine: fetch`` (the copy back, which waits for the card),
+  ``engine: assemble``, and ``engine: capture`` and ``engine: wire
+  re-probe`` where they happen.
+
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit device it raises rather than fall back.
 """
@@ -71,6 +82,7 @@ from some_tpu_torch.ops._build import on_device
 from some_tpu_torch.ops.quant import adopt_int8_layout, quantize_params
 from some_tpu_torch.ops.replica_max import ReplicaGroup, launching, replica_stream
 from some_tpu_torch.parallel.mesh import pad_rows, split_rows
+from some_tpu_torch.utils import profiling
 from some_tpu_torch.utils.checkpoint import load_state_dict
 
 #: int8 sites a graph segment holds on an int8 mesh (``_Segments``): some
@@ -84,6 +96,10 @@ SITES_PER_GRAPH = 16
 DEFAULT_BUCKETS = (128, 192, 256, 384, 512, 768, 1024, 1536, 2048, 3072, 4096,
                    6144, 8192, 12288, 16384, 24576, 32768)
 DEFAULT_BATCH_BUCKETS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
+#: what ``bucket_counts`` counts of each bucket: its forwards, by how each
+#: ran ('replay' of its graph, 'capture' (captured, then replayed),
+#: 'eager'), its rows' real frames and its launched frames (rows x frames)
+BUCKET_COUNTS = ("forwards", "replay", "capture", "eager", "real_frames", "launched_frames")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -123,6 +139,8 @@ class _BucketGraph:
 
     def __init__(self, audio: torch.Tensor, mask: torch.Tensor, graphs: list, out: dict):
         self.audio, self.mask, self.graphs, self.out = audio, mask, graphs, out
+        #: its launches so far (the first follows its capture)
+        self.launches = 0
 
     @property
     def graph(self):
@@ -205,6 +223,11 @@ class BaseInference:
         self.timestep = config["hop_size"] / config["audio_sample_rate"]
         self._graphs: Dict[tuple, _BucketGraph] = {}
         self._visits: Dict[tuple, int] = {}
+        #: BUCKET_COUNTS by (wire, rows, frames), kept across wire flips
+        self._counts: Dict[tuple, dict] = {}
+        self._counts_lock = threading.Lock()
+        #: how the last forward ran: 'replay', 'capture' or 'eager'
+        self.last_dispatch = None
         self._eager_warm = set()  # buckets warmed up for eager dispatch on an int8 mesh
         self._pool = None  # the graphs' one memory pool, made at the first capture
         self._graph_dispatch = True
@@ -426,17 +449,18 @@ class BaseInference:
             return
         if time.monotonic() - self._wire_probe_time < self._wire_probe_ttl_s:
             return
-        mb_s = self._probe_link_mb_s(self.device)
-        self._wire_probe_time = time.monotonic()
-        wire, wire_sr = self._auto_wire_policy(mb_s, self._wire_base_config,
-                                               self._wire_threshold_mb_s)
-        previous = (self.wire, self._auto_wire_sr)
-        self._auto_wire_sr = wire_sr
-        self._record_wire_decision(mb_s, wire)
-        if (wire, wire_sr) != previous:
-            for replica in self.replicas:
-                replica._set_wire(wire, wire_sr)
-                replica._rebuild_wire_pipeline()
+        with profiling.span("engine: wire re-probe"):
+            mb_s = self._probe_link_mb_s(self.device)
+            self._wire_probe_time = time.monotonic()
+            wire, wire_sr = self._auto_wire_policy(mb_s, self._wire_base_config,
+                                                   self._wire_threshold_mb_s)
+            previous = (self.wire, self._auto_wire_sr)
+            self._auto_wire_sr = wire_sr
+            self._record_wire_decision(mb_s, wire)
+            if (wire, wire_sr) != previous:
+                for replica in self.replicas:
+                    replica._set_wire(wire, wire_sr)
+                    replica._rebuild_wire_pipeline()
 
     # ---- dispatch ----
 
@@ -601,7 +625,7 @@ class BaseInference:
         ``replay`` is False: then only the inputs' copies, for ``_replay``),
         or the eager pipeline when ``entry`` is None. Returns its outputs,
         not copied."""
-        self.forwards += 1
+        self._count(entry, mask)
         if self.device.type != "cuda":
             return self._device_pipeline(audio, mask)
         with on_device(self.device.index):
@@ -622,6 +646,48 @@ class BaseInference:
                 for graph in entry.graphs if replay else ():
                     graph.replay()
                 return entry.out
+
+    def _count(self, entry, mask: torch.Tensor) -> None:
+        """One forward of the (wire, rows, frames) bucket of ``mask``, in
+        ``forwards`` and in the bucket's counts (``bucket_counts``)."""
+        kind = "eager" if entry is None else "replay" if entry.launches else "capture"
+        rows, frames = mask.shape
+        with self._counts_lock:
+            self.forwards += 1
+            counts = self._counts.get((self.wire, rows, frames))
+            if counts is None:
+                counts = self._counts[(self.wire, rows, frames)] = dict.fromkeys(BUCKET_COUNTS, 0)
+            counts["forwards"] += 1
+            counts[kind] += 1
+            counts["launched_frames"] += rows * frames
+            if entry is not None:
+                entry.launches += 1
+            self.last_dispatch = kind
+
+    def _count_real(self, frame_mask: np.ndarray) -> int:
+        """The real frames of a host mask just run, in its bucket's counts
+        (on a mesh each replica's shard in the replica's: ``pad_rows``,
+        ``split_rows``); returns them."""
+        replicas = self.replicas
+        per_row = np.count_nonzero(frame_mask, axis=1)
+        per_row = np.concatenate([per_row, np.zeros(-len(per_row) % len(replicas), int)])
+        for replica, shard in zip(replicas, np.split(per_row, len(replicas))):
+            with replica._counts_lock:
+                replica._counts[(self.wire, len(shard), frame_mask.shape[1])][
+                    "real_frames"] += int(shard.sum())
+        return int(per_row.sum())
+
+    def bucket_counts(self) -> List[dict]:
+        """What each bucket ran, one dict per (replica, wire, rows, frames)
+        bucket with ``BUCKET_COUNTS``: on a mesh one set per replica, each
+        replica's forwards summing to its ``forwards``. Real frames are
+        those of host masks run through ``run_bucket`` or ``infer``."""
+        out = []
+        for i, replica in enumerate(self.replicas):
+            with replica._counts_lock:
+                out += [{"replica": i, "wire": wire, "rows": rows, "frames": frames, **counts}
+                        for (wire, rows, frames), counts in sorted(replica._counts.items())]
+        return out
 
     def _replay(self, entry: _BucketGraph, k: int) -> None:
         """Replay segment ``k`` of a captured bucket on this replica's stream."""
@@ -694,22 +760,23 @@ class BaseInference:
             entry = self._graphs.get(key)
             if entry is not None:
                 return entry
-            audio, mask = self._static_inputs(audio_shape, audio_dtype, mask_shape)
-            side = self._streams[1]
-            self._warm_up(audio, mask, side)
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            member = self._member
-            segments = _Segments()
-            if member is not None and member.exchanges:
-                member.on_site = segments.site
-            try:
-                with torch.cuda.graph(segments, pool=self._pool, stream=side,
-                                      capture_error_mode="thread_local"):
-                    out = self._device_pipeline(audio, mask)
-            finally:
-                if member is not None:
-                    member.on_site = None
+            with profiling.span("engine: capture"):
+                audio, mask = self._static_inputs(audio_shape, audio_dtype, mask_shape)
+                side = self._streams[1]
+                self._warm_up(audio, mask, side)
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                member = self._member
+                segments = _Segments()
+                if member is not None and member.exchanges:
+                    member.on_site = segments.site
+                try:
+                    with torch.cuda.graph(segments, pool=self._pool, stream=side,
+                                          capture_error_mode="thread_local"):
+                        out = self._device_pipeline(audio, mask)
+                finally:
+                    if member is not None:
+                        member.on_site = None
             entry = _BucketGraph(audio, mask, segments.graphs, out)
             self._graphs[key] = entry
             return entry
@@ -722,7 +789,9 @@ class BaseInference:
         return len(self._graphs)
 
     def run_bucket(self, audio: np.ndarray, frame_mask: np.ndarray) -> dict:
-        return self.run_bucket_staged(*self.stage_inputs(audio, frame_mask))
+        out = self.run_bucket_staged(*self.stage_inputs(audio, frame_mask))
+        self._count_real(frame_mask)
+        return out
 
     def assemble(self, device_out: dict, n_frames: int) -> Dict[str, np.ndarray]:
         raise NotImplementedError
@@ -805,15 +874,19 @@ class BaseInference:
         """Chunk list -> note dicts, batched per bucket: dispatch every group
         (``dispatch_staged``), then fetch and assemble."""
         self.maybe_reprobe_wire()
-        groups, n_parts = self.bucket_groups(waveforms)
+        with profiling.span("engine: bucket and wire-encode"):
+            groups, n_parts = self.bucket_groups(waveforms)
         outs = self.dispatch_staged([(audio, mask) for _, audio, mask in groups])
         parts: List[list] = [[None] * n for n in n_parts]
         for (group, _, _), out in zip(groups, outs):
-            out = {k: v.cpu().numpy() for k, v in out.items()}
-            for row, job in enumerate(group):
-                parts[job["idx"]][job["part"]] = self.assemble(
-                    {k: v[row] for k, v in out.items()}, job["frames"])
-        return [p[0] if len(p) == 1 else self.merge_parts(p) for p in parts]
+            with profiling.span("engine: fetch"):
+                out = {k: v.cpu().numpy() for k, v in out.items()}
+            with profiling.span("engine: assemble"):
+                for row, job in enumerate(group):
+                    parts[job["idx"]][job["part"]] = self.assemble(
+                        {k: v[row] for k, v in out.items()}, job["frames"])
+        with profiling.span("engine: assemble"):
+            return [p[0] if len(p) == 1 else self.merge_parts(p) for p in parts]
 
     def dispatch_staged(self, inputs, depth: int | None = None) -> List[dict]:
         """Host (audio, mask) rows -> device outputs, one ``run_bucket``
@@ -823,7 +896,12 @@ class BaseInference:
         being dispatched; 0 stages and runs each in turn."""
         depth = self._stream_depth() if depth is None else depth
         if len(inputs) <= 1 or depth == 0:
-            return [self.run_bucket(audio, mask) for audio, mask in inputs]
+            outs = []
+            for audio, mask in inputs:
+                with profiling.span("engine: stage"):
+                    staged = self.stage_inputs(audio, mask)
+                outs.append(self._launch_bucket(staged, mask))
+            return outs
         from collections import deque
         from concurrent.futures import ThreadPoolExecutor
 
@@ -831,14 +909,27 @@ class BaseInference:
         with ThreadPoolExecutor(max_workers=1) as pool:
             staged = deque(pool.submit(self.stage_inputs, *item) for item in inputs[:depth])
             upcoming = iter(inputs[depth:])
-            while staged:
-                ready = staged.popleft().result()
+            for _, mask in inputs:
+                with profiling.span("engine: stage"):  # the wait for the worker's staging
+                    ready = staged.popleft().result()
                 item = next(upcoming, None)
                 if item is not None:
                     # the worker stages the next input while this one computes
                     staged.append(pool.submit(self.stage_inputs, *item))
-                outs.append(self.run_bucket_staged(*ready))
+                outs.append(self._launch_bucket(ready, mask))
         return outs
+
+    def _launch_bucket(self, staged, mask: np.ndarray) -> dict:
+        """``run_bucket_staged`` of one staged input, in an ``engine:
+        launch`` span that carries its rows, frames, real frames and how it
+        ran."""
+        with profiling.span("engine: launch") as sp:
+            out = self.run_bucket_staged(*staged)
+            real = self._count_real(mask)
+            if sp:
+                sp.attrs.update(rows=mask.shape[0], frames=mask.shape[1], real_frames=real,
+                                dispatch=self.last_dispatch)
+        return out
 
     def prewarm(self, frame_buckets, rows=(1, 2, 3, 4, 6, 8), workers: int = 1) -> int:
         """Build the (rows, frames) bucket programs before traffic arrives:

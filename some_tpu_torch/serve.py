@@ -9,10 +9,24 @@ Endpoints
   POST /transcribe?tempo=120[&format=json]   body: WAV bytes
        -> audio/midi SMF bytes (or JSON note arrays with format=json)
   GET  /healthz  -> {"status": "ok"|"stalled"|"recycle", "queue_depth": N, ...}
-  GET  /stats    -> cumulative counts, audio seconds, device seconds, RTF
+  GET  /stats    -> cumulative counts: requests, batches, audio seconds;
+                    ``infer_seconds``, the host's time inside ``engine.infer``
+                    (bucketing, wire encoding, staging, launches, the fetch,
+                    assembly) and ``infer_rtf``, audio seconds over it; per job
+                    ``job_queue_wait_ms`` and ``job_infer_ms``; ``buckets``, the
+                    engine's ``bucket_counts()`` (each bucket's forwards by
+                    replay, capture and eager run, real and launched frames)
 
     python -m some_tpu_torch.serve --model CKPT [--port 8572] [--prewarm 768,1024]
-        [--wire-sr 22050] [--device cpu]
+        [--wire-sr 22050] [--device cpu] [--trace-out PATH]
+
+``--trace-out PATH`` switches the program's span recorder
+(``utils/profiling``) on and writes it to PATH as a Chrome trace when the
+server shuts down: each request's handler spans (read body, decode WAV,
+slice, wait, reply) under one request id, the dispatcher's (wait for job,
+batching wait, infer, resolve, each job's time queued) and the engine's
+(bucket and wire-encode, stage, launch, fetch, assemble, capture, wire
+re-probe).
 
 Stdlib only (``http.server``, argparse). Runs on the card unless
 ``--device cpu``; without a card it raises.
@@ -21,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import io
+import itertools
 import json
 import pathlib
 import queue
@@ -37,6 +52,7 @@ import numpy as np
 from some_tpu_torch.audio.wavio import load_wav
 from some_tpu_torch.infer import load_engine, parse_buckets
 from some_tpu_torch.inference.pipeline import MAX_DURATION_SEC, segments_to_json, slice_waveform
+from some_tpu_torch.utils import profiling
 from some_tpu_torch.utils.midi_file import build_midi_file
 
 # Bound on the request body itself; the per-request duration gate is
@@ -44,13 +60,16 @@ from some_tpu_torch.utils.midi_file import build_midi_file
 # 20-minute 48 kHz upload in any common encoding (float32 stereo ~460 MB);
 # a float64 stereo WAV of that length (~920 MB) is refused with 413.
 MAX_BODY_BYTES = 512 * 1024 * 1024
+#: request ids; a request's job takes its request's
+_request_ids = itertools.count(1)
 
 
 class TranscribeJob:
     __slots__ = ("chunks", "offsets", "tempo", "audio_seconds", "done",
-                 "segments", "error", "resolution", "_lock", "t_submit")
+                 "segments", "error", "resolution", "_lock", "t_submit", "rid")
 
-    def __init__(self, chunks, offsets, tempo, audio_seconds=0.0):
+    def __init__(self, chunks, offsets, tempo, audio_seconds=0.0, rid=None):
+        self.rid = next(_request_ids) if rid is None else rid
         self.chunks = chunks          # list of waveforms (one per slice)
         self.offsets = offsets
         self.tempo = tempo
@@ -97,14 +116,14 @@ class BatchingDispatcher:
         self.jobs: "queue.Queue[TranscribeJob]" = queue.Queue(max_queue_jobs)
         self.stats = {"requests": 0, "failed_requests": 0,
                       "abandoned_requests": 0, "batches": 0,
-                      "audio_seconds": 0.0, "device_seconds": 0.0,
+                      "audio_seconds": 0.0, "infer_seconds": 0.0,
                       "max_jobs_per_batch": 0}
-        # per-job (queue wait, device) seconds, the last 2048: is a slow
-        # request waiting in the queue or on the device?
+        # per-job (queue wait, engine.infer) seconds, the last 2048: is a
+        # slow request waiting in the queue or in its batch's infer?
         self._job_times: "deque[tuple]" = deque(maxlen=2048)
         self._lock = threading.Lock()
         self._busy_since: Optional[float] = None
-        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread = threading.Thread(target=self._run, daemon=True, name="serve-dispatcher")
         self._thread.start()
 
     def submit(self, job: TranscribeJob) -> bool:
@@ -132,21 +151,23 @@ class BatchingDispatcher:
                     + self.stats["abandoned_requests"])
 
     def _drain(self) -> List[TranscribeJob]:
-        batch = [self.jobs.get()]  # block for the first job
+        with profiling.span("dispatcher: wait for job"):
+            batch = [self.jobs.get()]  # block for the first job
         if self.fast_lane and self.jobs.empty():
             return batch
-        deadline = time.monotonic() + self.max_wait
-        n_chunks = len(batch[0].chunks)
-        while n_chunks < self.max_chunks:
-            timeout = deadline - time.monotonic()
-            if timeout <= 0:
-                break
-            try:
-                job = self.jobs.get(timeout=timeout)
-            except queue.Empty:
-                break
-            batch.append(job)
-            n_chunks += len(job.chunks)
+        with profiling.span("dispatcher: batching wait"):
+            deadline = time.monotonic() + self.max_wait
+            n_chunks = len(batch[0].chunks)
+            while n_chunks < self.max_chunks:
+                timeout = deadline - time.monotonic()
+                if timeout <= 0:
+                    break
+                try:
+                    job = self.jobs.get(timeout=timeout)
+                except queue.Empty:
+                    break
+                batch.append(job)
+                n_chunks += len(job.chunks)
         return batch
 
     def _run(self) -> None:
@@ -163,10 +184,18 @@ class BatchingDispatcher:
                 continue
             waveforms = [w for job in batch for w in job.chunks]
             t0 = time.monotonic()
+            if profiling.recording():
+                for job in batch:
+                    profiling.record("job: queued", round(job.t_submit * 1e9), round(t0 * 1e9),
+                                     job.rid, chunks=len(job.chunks))
             with self._lock:
                 self._busy_since = t0
             try:
-                all_segments = self.engine.infer(waveforms)
+                with profiling.span("dispatcher: infer") as sp:
+                    if sp:
+                        sp.rid = tuple(job.rid for job in batch)
+                        sp.attrs["chunks"] = len(waveforms)
+                    all_segments = self.engine.infer(waveforms)
             except Exception as exc:  # the boundary: every caller in the batch gets it
                 failed = 0
                 for job in batch:
@@ -178,46 +207,53 @@ class BatchingDispatcher:
                     self.stats["failed_requests"] += failed
                     self.stats["abandoned_requests"] += len(batch) - failed
                 continue
-            elapsed = time.monotonic() - t0
-            for job in batch:
-                # queue wait = submit -> the batch's device dispatch began
-                self._job_times.append((t0 - job.t_submit, elapsed))
-            pos = 0
-            delivered = []
-            for job in batch:
-                job.segments = all_segments[pos:pos + len(job.chunks)]
-                pos += len(job.chunks)
-                # claim before done.set(): a handler timing out in the same
-                # instant either wins the claim (503, counted abandoned) or
-                # loses it (the fields are final, it delivers)
-                if job.resolve("delivered"):
-                    delivered.append(job)
-                job.done.set()
-            with self._lock:
-                self._busy_since = None
-                self.stats["requests"] += len(delivered)
-                self.stats["abandoned_requests"] += len(batch) - len(delivered)
-                self.stats["batches"] += 1
-                self.stats["device_seconds"] += elapsed
-                # only completed work counts toward throughput: failed jobs
-                # would inflate RTF exactly when the service is broken
-                self.stats["audio_seconds"] += sum(job.audio_seconds for job in delivered)
-                self.stats["max_jobs_per_batch"] = max(self.stats["max_jobs_per_batch"],
-                                                       len(batch))
+            with profiling.span("dispatcher: resolve"):
+                self._resolve(batch, all_segments, t0)
+
+    def _resolve(self, batch: List[TranscribeJob], all_segments, t0: float) -> None:
+        """Hand each job of a batch its segments and wake its handler."""
+        elapsed = time.monotonic() - t0
+        for job in batch:
+            # queue wait = submit -> the batch's engine.infer began
+            self._job_times.append((t0 - job.t_submit, elapsed))
+        pos = 0
+        delivered = []
+        for job in batch:
+            job.segments = all_segments[pos:pos + len(job.chunks)]
+            pos += len(job.chunks)
+            # claim before done.set(): a handler timing out in the same
+            # instant either wins the claim (503, counted abandoned) or
+            # loses it (the fields are final, it delivers)
+            if job.resolve("delivered"):
+                delivered.append(job)
+            job.done.set()
+        with self._lock:
+            self._busy_since = None
+            self.stats["requests"] += len(delivered)
+            self.stats["abandoned_requests"] += len(batch) - len(delivered)
+            self.stats["batches"] += 1
+            self.stats["infer_seconds"] += elapsed
+            # only completed work counts toward throughput: failed jobs
+            # would inflate RTF exactly when the service is broken
+            self.stats["audio_seconds"] += sum(job.audio_seconds for job in delivered)
+            self.stats["max_jobs_per_batch"] = max(self.stats["max_jobs_per_batch"],
+                                                   len(batch))
 
     def snapshot(self) -> dict:
         with self._lock:
             stats = dict(self.stats)
             times = list(self._job_times)
-        stats["rtf"] = (stats["audio_seconds"] / stats["device_seconds"]
-                        if stats["device_seconds"] else 0.0)
+        stats["infer_rtf"] = (stats["audio_seconds"] / stats["infer_seconds"]
+                              if stats["infer_seconds"] else 0.0)
         if times:
             waits = np.array([w for w, _ in times]) * 1e3
-            devs = np.array([d for _, d in times]) * 1e3
-            for key, values in (("job_queue_wait_ms", waits), ("job_device_ms", devs)):
+            infers = np.array([d for _, d in times]) * 1e3
+            for key, values in (("job_queue_wait_ms", waits), ("job_infer_ms", infers)):
                 stats[key] = {"p50": round(float(np.percentile(values, 50)), 1),
                               "p99": round(float(np.percentile(values, 99)), 1),
                               "max": round(float(values.max()), 1)}
+        if hasattr(self.engine, "bucket_counts"):
+            stats["buckets"] = self.engine.bucket_counts()
         stats["wire"] = getattr(self.engine, "wire", None)
         if getattr(self.engine, "wire_decision", None) is not None:
             # the auto wire's live decision (re-probed inside engine.infer)
@@ -311,9 +347,14 @@ def make_server(engine, config: dict, addr: str, port: int,
             if length > MAX_BODY_BYTES:
                 self._reply_json(413, {"error": f"body larger than {MAX_BODY_BYTES} bytes"})
                 return
-            body = self.rfile.read(length)
+            rid = next(_request_ids)
+            with profiling.span("handler: read body", rid):
+                body = self.rfile.read(length)
             try:
-                waveform, _ = load_wav(io.BytesIO(body), sr=sr, mono=True)
+                with profiling.span("handler: decode WAV", rid) as sp:
+                    waveform, _ = load_wav(io.BytesIO(body), sr=sr, mono=True)
+                    if sp:
+                        sp.attrs["audio_s"] = len(waveform) / sr
             except Exception:  # any decode failure of an uploaded body is the client's
                 self._reply_json(400, {"error": "unsupported or corrupt wav"})
                 return
@@ -321,14 +362,17 @@ def make_server(engine, config: dict, addr: str, port: int,
             if duration > MAX_DURATION_SEC:
                 self._reply_json(413, {"error": "audio longer than 20 min"})
                 return
-            chunk_dicts = slice_waveform(waveform, sr)
+            with profiling.span("handler: slice", rid):
+                chunk_dicts = slice_waveform(waveform, sr)
             job = TranscribeJob([c["waveform"] for c in chunk_dicts],
                                 [c["offset"] for c in chunk_dicts], tempo,
-                                audio_seconds=duration)
+                                audio_seconds=duration, rid=rid)
             if not dispatcher.submit(job):
                 self._reply_json(429, {"error": "server overloaded, retry later"})
                 return
-            if not job.done.wait(timeout=infer_timeout_s):
+            with profiling.span("handler: wait", rid):
+                done = job.done.wait(timeout=infer_timeout_s)
+            if not done:
                 # a hung device call holds the dispatcher thread; tell the
                 # caller instead of hanging the connection with it
                 if job.resolve("abandoned"):
@@ -336,13 +380,17 @@ def make_server(engine, config: dict, addr: str, port: int,
                     return
                 # lost the claim: the dispatcher resolved the job in the
                 # timeout gap and its fields are final; deliver them
-            if job.error is not None:
-                self._reply_json(500, {"error": job.error})
-            elif as_json:
-                self._reply_json(200, segments_to_json(job.offsets, job.segments, job.tempo))
-            else:
-                midi = build_midi_file(job.offsets, job.segments, tempo=tempo)
-                self._reply(200, midi.serialize(), "audio/midi")
+            with profiling.span("handler: reply", rid) as sp:
+                if sp:
+                    sp.attrs["audio_s"] = duration
+                if job.error is not None:
+                    self._reply_json(500, {"error": job.error})
+                elif as_json:
+                    self._reply_json(200, segments_to_json(job.offsets, job.segments,
+                                                           job.tempo))
+                else:
+                    midi = build_midi_file(job.offsets, job.segments, tempo=tempo)
+                    self._reply(200, midi.serialize(), "audio/midi")
 
     httpd = PooledHTTPServer((addr, port), Handler)
     return httpd, dispatcher
@@ -374,6 +422,9 @@ def main(argv=None) -> None:
                              "rows 1-8), e.g. '768,1024'")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; cpu runs the plain versions)")
+    parser.add_argument("--trace-out", default=None, metavar="PATH",
+                        help="record the program's spans and write them to PATH as a Chrome "
+                             "trace when the server shuts down")
     args = parser.parse_args(argv)
     engine = load_engine(pathlib.Path(args.model), device=args.device, quiet=True,
                          wire_sr=args.wire_sr, max_batch_chunks=args.max_batch_chunks,
@@ -386,10 +437,15 @@ def main(argv=None) -> None:
                            fast_lane=args.fast_lane, recycle_after=args.recycle_after)
     print(f"| serving on http://{args.addr}:{httpd.server_address[1]} "
           "(POST /transcribe, GET /healthz, /stats)", flush=True)
+    if args.trace_out:
+        profiling.enable()
     try:
         httpd.serve_forever()
     finally:
         httpd.server_close()
+        if args.trace_out:
+            profiling.disable()
+            print(f"| spans written to {profiling.dump(args.trace_out)}", flush=True)
 
 
 if __name__ == "__main__":

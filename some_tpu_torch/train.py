@@ -7,7 +7,12 @@ are), and TensorBoard event files when tensorboardX imports. Runs on the GPU
 unless ``--device cpu``.
 
     python -m some_tpu_torch.train --config configs/midi_conformer.yaml \\
-        --exp_name NAME [--work_dir DIR] [--max_steps N] [--device cpu]
+        --exp_name NAME [--work_dir DIR] [--max_steps N] [--device cpu] \\
+        [--trace-out PATH]
+
+``--trace-out PATH`` (the port's own) switches the program's span recorder
+(``utils/profiling``) on for the whole run and writes it to PATH as a
+Chrome trace when training ends; it is not written into ``config.yaml``.
 
 Several processes: start one per device with SOME_TPU_COORDINATOR=host:port,
 SOME_TPU_NUM_PROCESSES and SOME_TPU_PROCESS_ID set (or under torchrun); the
@@ -51,6 +56,9 @@ def main(argv=None):
                         help="override max_updates (smoke runs)")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; cpu runs the plain versions)")
+    parser.add_argument("--trace-out", default=None, metavar="PATH",
+                        help="record the program's spans and write them to PATH as a Chrome "
+                             "trace when training ends")
     args = parser.parse_args(argv)
     logging.basicConfig(stream=sys.stdout, level=logging.INFO,
                         format="%(asctime)s %(message)s", datefmt="%m/%d %I:%M:%S %p")
@@ -73,6 +81,8 @@ def main(argv=None):
     if is_rank0:
         save_yaml(config, work_dir / "config.yaml")
     config["work_dir"] = str(work_dir)
+    if args.trace_out:
+        config["trace_out"] = args.trace_out
 
     task = build_task(config, device=args.device)
     log_writer = None

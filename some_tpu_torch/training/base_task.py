@@ -42,6 +42,13 @@ replays run one after another and an eager step warms that stream's
 caches. The CPU runs every step eagerly. :func:`set_train_dispatch` is the
 test-only switch to the eager dispatch on the card.
 
+While the span recorder (``utils/profiling``) records, a train step is a
+``task: train_step`` span (rows, frames, real frames where ``to_device``
+counted them on the host, how it ran) holding ``task:
+prepare`` (train mode, the dropout step, the inputs on the device, the lr
+bound and filled), ``task: capture`` where it captures, then ``task: copy
+inputs``, ``task: replay`` and ``task: clone outputs``, or ``task: eager``.
+
 Several processes (``parallel/distributed.py``): each holds its rows of the
 global batch, and the step is the JAX step over that batch. The losses
 divide by the global row, frame and label counts (each process's loss is
@@ -73,6 +80,7 @@ from some_tpu_torch.training.optimizers import (
     bind_lr, build_optimizer, clip_by_global_norm_, global_norm,
 )
 from some_tpu_torch.training.schedules import build_schedule
+from some_tpu_torch.utils import profiling
 
 
 class TrainState:
@@ -194,7 +202,9 @@ class BaseTask:
         return TrainState(model, self.make_optimizer(model))
 
     def to_device(self, batch: dict) -> dict:
-        """numpy arrays -> tensors on the task's device; other values pass."""
+        """numpy arrays -> tensors on the task's device; other values pass.
+        A numpy ``mask``'s real frames are put in as ``real_frames`` (an int,
+        counted on the host so that no count waits for the card)."""
         out = {}
         for key, value in batch.items():
             if isinstance(value, np.ndarray):
@@ -204,6 +214,8 @@ class BaseTask:
                 out[key] = t
             else:
                 out[key] = value
+        if isinstance(batch.get("mask"), np.ndarray):
+            out["real_frames"] = int(np.count_nonzero(batch["mask"]))
         return out
 
     def _bind(self, state: TrainState) -> None:
@@ -265,10 +277,12 @@ class BaseTask:
             visit = state.visits[key] = state.visits.get(key, 0) + 1
             if visit < self.CAPTURE_ON_VISIT:
                 return None
-            inputs = {k: v.clone() for k, v in tensors.items()}
-            static = dict(batch, **inputs)  # other values: the capture's
-            generators = dropout_generators(state.model) if kind[0] == "train" else []
-            graph, out = self._capture_graph(state, kind[0], lambda: body(static), generators)
+            with profiling.span("task: capture"):
+                inputs = {k: v.clone() for k, v in tensors.items()}
+                static = dict(batch, **inputs)  # other values: the capture's
+                generators = dropout_generators(state.model) if kind[0] == "train" else []
+                graph, out = self._capture_graph(state, kind[0], lambda: body(static),
+                                                 generators)
             entry = state.graphs[key] = StepGraph(inputs, graph, out)
             self.last_dispatch = "capture"
         else:
@@ -313,15 +327,20 @@ class BaseTask:
         self.last_dispatch, self.last_graph = "eager", None
         entry = self._step_entry(state, kind, batch, body)
         if entry is None:
-            out = body(batch)
+            with profiling.span("task: eager"):
+                out = body(batch)
         else:
-            for name, value in entry.inputs.items():
-                value.copy_(batch[name])
-            if kind[0] == "train":
-                seed_dropout(state.model)
-            entry.graph.replay()
+            with profiling.span("task: copy inputs"):
+                for name, value in entry.inputs.items():
+                    value.copy_(batch[name])
+            with profiling.span("task: replay"):
+                if kind[0] == "train":
+                    seed_dropout(state.model)
+                entry.graph.replay()
             self.last_graph = entry
-            out = tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, entry.out)
+            with profiling.span("task: clone outputs"):
+                out = tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+                               entry.out)
         if caller is not None:  # made on the compute stream, read on the caller's
             tree_map(lambda t: t.record_stream(caller) if isinstance(t, torch.Tensor) else t,
                      out)
@@ -332,28 +351,36 @@ class BaseTask:
         """One micro-batch: forward, backward, and the update when due.
         ``batch`` is a collated numpy batch or one already on the device.
         The logs are the step's own tensors (a replay's are cloned out)."""
-        model = state.model
-        model.train()
-        rows = None
-        if dist.is_active():  # this process's rows of the global batch
-            b = batch["units"].shape[0]
-            rows = (dist.rank() * b, dist.world_size() * b)
-        set_dropout_step(model, self.config["seed"], state.step, rows)
-        if any(isinstance(v, np.ndarray) for v in batch.values()):
-            batch = self.to_device(batch)
-        k = self.grad_accum
-        with self._on_stream(batch) as caller:
-            self._bind(state)
-            mini = None if k == 1 else self._accumulator(state)
-            applies = mini is None or mini + 1 == k
-            if applies:  # the lr of the updates applied so far
-                state.lr.fill_(self.schedule(state.step // k))
+        with profiling.span("task: train_step") as sp, contextlib.ExitStack() as on_stream:
+            with profiling.span("task: prepare"):
+                model = state.model
+                model.train()
+                rows = None
+                if dist.is_active():  # this process's rows of the global batch
+                    b = batch["units"].shape[0]
+                    rows = (dist.rank() * b, dist.world_size() * b)
+                set_dropout_step(model, self.config["seed"], state.step, rows)
+                if any(isinstance(v, np.ndarray) for v in batch.values()):
+                    batch = self.to_device(batch)
+                k = self.grad_accum
+                caller = on_stream.enter_context(self._on_stream(batch))
+                self._bind(state)
+                mini = None if k == 1 else self._accumulator(state)
+                applies = mini is None or mini + 1 == k
+                if applies:  # the lr of the updates applied so far
+                    state.lr.fill_(self.schedule(state.step // k))
             logs = self._run(state, ("train", mini), batch,
                              lambda b: self._train_body(state, b, mini), caller)
-        if mini is not None:
-            state.accumulator = (None if applies else
-                                 {"mini_step": mini + 1, "grads": state.acc_grads})
-        state.step += 1
+            on_stream.close()  # the current stream waits for the step's work
+            if mini is not None:
+                state.accumulator = (None if applies else
+                                     {"mini_step": mini + 1, "grads": state.acc_grads})
+            state.step += 1
+            if sp:
+                sp.attrs.update(rows=batch["mask"].shape[0], frames=batch["mask"].shape[1],
+                                dispatch=self.last_dispatch)
+                if "real_frames" in batch:
+                    sp.attrs["real_frames"] = batch["real_frames"]
         return logs
 
     def _train_body(self, state: TrainState, batch: dict, mini: Optional[int]):

@@ -19,7 +19,8 @@ Counterpart of ``some_tpu/training/trainer.py``:
     checkpoint or a native JAX one; without one, ``finetune_enabled`` starts
     from another run's weights (a port, JAX or reference Lightning file);
   * with ``profile_dir``, one extra traced step at ``step == log_interval``
-    (``utils/profiling.trace``), counted so an interrupt inside it resumes
+    (``utils/profiling.trace``, the program's spans of the step in the same
+    trace file), counted so an interrupt inside it resumes
     without losing or repeating a batch; on the card it replays the batch's
     graph, whose hand-written kernels are counted from the graph's nodes
     (``graph_kernel_nodes.json`` beside the trace: torch.profiler loses
@@ -31,7 +32,15 @@ Counterpart of ``some_tpu/training/trainer.py``:
     batches of the sampler, pads them to the shapes every rank's batch of
     the step needs (computed from the sampler without communication),
     validates its rows of each validation batch, and only process 0 writes
-    checkpoints and logs.
+    checkpoints and logs;
+  * spans of the program's recorder (``utils/profiling``) where the time
+    goes: ``trainer: wait for batch`` (the loop's wait for the prefetch
+    thread, or the inline read at ``ds_workers`` 0), ``prefetch: read``,
+    ``prefetch: collate``, ``prefetch: to_device``, ``trainer: log`` (the
+    card's logs read at a log interval), ``trainer: validate``,
+    ``trainer: checkpoint``; the task's ``task: train_step`` and its parts.
+    With ``trace_out`` (``train.py --trace-out PATH``) the whole fit's spans
+    are written to PATH as a Chrome trace.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ from some_tpu_torch.training.base_task import BaseTask, TrainState
 from some_tpu_torch.training.checkpoint import (
     CheckpointManager, latest_checkpoint, list_checkpoints,
 )
+from some_tpu_torch.utils import profiling
 from some_tpu_torch.utils.checkpoint import load_checkpoint
 
 log = logging.getLogger("some_tpu_torch.trainer")
@@ -191,15 +201,20 @@ class Trainer:
         earlier steps."""
         def prepare(args):
             idx_list, common = args
-            items = [train_ds[i] for i in idx_list]
-            batch = (self.task.collate(items) if common is None
-                     else self.task.collate(items, common=common))
-            return idx_list, self.task.to_device(batch)
+            with profiling.span("prefetch: read"):
+                items = [train_ds[i] for i in idx_list]
+            with profiling.span("prefetch: collate"):
+                batch = (self.task.collate(items) if common is None
+                         else self.task.collate(items, common=common))
+            with profiling.span("prefetch: to_device"):
+                return idx_list, self.task.to_device(batch)
 
         depth = int(self.config.get("ds_workers", 1) or 0)
         if depth <= 0:
             for args in epoch_iter:
-                yield prepare(args)
+                with profiling.span("trainer: wait for batch"):
+                    prepared = prepare(args)
+                yield prepared
             return
 
         q: queue.Queue = queue.Queue(maxsize=depth)
@@ -220,7 +235,8 @@ class Trainer:
         thread.start()
         try:
             while True:
-                item = q.get()
+                with profiling.span("trainer: wait for batch"):
+                    item = q.get()
                 if item is sentinel:
                     return
                 if isinstance(item, BaseException):
@@ -236,6 +252,25 @@ class Trainer:
 
     # ---- main loop ----
     def fit(self, max_steps: Optional[int] = None) -> TrainState:
+        """Train to ``max_updates`` (or ``max_steps``). With ``trace_out``
+        (a path) the span recorder is on for the whole fit and written
+        there as a Chrome trace when it ends (``.rank<N>`` before the suffix
+        in a process group of several)."""
+        trace_out = self.config.get("trace_out")
+        if not trace_out:
+            return self._fit(max_steps)
+        if dist.world_size() > 1:
+            trace_out = pathlib.Path(trace_out)
+            trace_out = trace_out.with_name(f"{trace_out.stem}.rank{dist.rank()}"
+                                            f"{trace_out.suffix}")
+        profiling.enable()
+        try:
+            return self._fit(max_steps)
+        finally:
+            profiling.disable()
+            log.info("spans written to %s", profiling.dump(trace_out))
+
+    def _fit(self, max_steps: Optional[int]) -> TrainState:
         config = self.config
         (train_ds, train_sizes), (valid_ds, valid_sizes) = self.task.load_datasets()
         sampler = BucketBatchSampler(
@@ -323,16 +358,17 @@ class Trainer:
                         micro_step += 1
                         step = micro_step // k
                     if micro_step % (self.log_interval * k) == 0:
-                        scalars = {key: float(v) for key, v in logs.items()}
-                        scalars["lr"] = self.task.schedule(step - 1)
-                        scalars["batch_size"] = len(idx_list)
-                        now = time.time()
-                        scalars["steps_per_sec"] = (self.log_interval / (now - t_last)
-                                                    if step > self.log_interval else 0.0)
-                        t_last = now
-                        self._log_scalars("training", scalars, step)
-                        log.info("step %d | %s", step,
-                                 " ".join(f"{key}={v:.5g}" for key, v in scalars.items()))
+                        with profiling.span("trainer: log"):  # reads the card's logs
+                            scalars = {key: float(v) for key, v in logs.items()}
+                            scalars["lr"] = self.task.schedule(step - 1)
+                            scalars["batch_size"] = len(idx_list)
+                            now = time.time()
+                            scalars["steps_per_sec"] = (self.log_interval / (now - t_last)
+                                                        if step > self.log_interval else 0.0)
+                            t_last = now
+                            self._log_scalars("training", scalars, step)
+                            log.info("step %d | %s", step,
+                                     " ".join(f"{key}={v:.5g}" for key, v in scalars.items()))
                     if micro_step % (self.val_check_interval * k) == 0:
                         self._validate(state, valid_ds, val_sampler)
                         self._save_ckpt(step, state, epoch, epoch_batch)
@@ -384,9 +420,11 @@ class Trainer:
         """Process 0 writes (every process holds the same state)."""
         if dist.rank() != 0:
             return
-        self.ckpt_manager.save(
-            step, state.model.state_dict(), state.optimizer.state_dict(), state.accumulator,
-            extra_meta={"micro_step": state.step, "epoch": epoch, "epoch_batch": epoch_batch})
+        with profiling.span("trainer: checkpoint"):
+            self.ckpt_manager.save(
+                step, state.model.state_dict(), state.optimizer.state_dict(), state.accumulator,
+                extra_meta={"micro_step": state.step, "epoch": epoch,
+                            "epoch_batch": epoch_batch})
 
     # ---- validation ----
     def _plots_available(self) -> bool:
@@ -406,6 +444,11 @@ class Trainer:
         a multiple of the process count); the losses and counts come back
         global. The first ``num_valid_plots`` batches of a validation that is
         not the sanity check are plotted where a log writer exists."""
+        with profiling.span("trainer: validate"):
+            return self._validate_batches(state, valid_ds, val_sampler, limit, sanity)
+
+    def _validate_batches(self, state: TrainState, valid_ds, val_sampler,
+                          limit: Optional[int], sanity: bool) -> dict:
         n_proc, rank = dist.world_size(), dist.rank()
         plots = (0 if sanity or self.log_writer is None
                  else int(self.config.get("num_valid_plots", 0) or 0))

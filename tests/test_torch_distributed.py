@@ -139,7 +139,7 @@ def test_two_processes_equal_one_process_on_the_global_batch(two_process_run):
     for a, b in zip(runs[0]["batches"], runs[1]["batches"]):
         glob = {}
         for key, va in a.items():
-            if key == "size":
+            if key in ("size", "real_frames"):
                 glob[key] = va + b[key]
             elif key == "t_real":
                 glob[key] = va

@@ -86,15 +86,24 @@ WAVS = {3: [synth(1.0, 440, seed=1), synth(1.3, 523, seed=2), synth(0.8, 330, se
 def test_mesh_matches_jax_mesh_and_one_device(variables, n, chunks):
     """N replicas give the JAX mesh engine's notes and the port's one-device
     engine's: 3 chunks (rows padded to the mesh) and 8 (no padding rows at
-    N = 8). Each replica ran the forwards of its shard."""
+    N = 8). Each replica ran the forwards of its shard; the bucket counts
+    hold one set a replica, and their real frames summed are the one-device
+    engine's."""
     wavs = WAVS[chunks]
     mesh = port_engine(variables, n)
     assert len(mesh.replicas) == n and all(r.device.type == "cpu" for r in mesh.replicas)
     assert len({id(r.model) for r in mesh.replicas}) == n
     got = mesh.infer(wavs)
+    one = port_engine(variables)
     assert_notes(got, jax_engine(variables, n).infer(wavs))
-    assert_notes(got, port_engine(variables).infer(wavs))
+    assert_notes(got, one.infer(wavs))
     assert len({r.forwards for r in mesh.replicas}) == 1 and mesh.forwards >= 1
+    counts = mesh.bucket_counts()
+    assert {c["replica"] for c in counts} == set(range(n))
+    for i, replica in enumerate(mesh.replicas):
+        assert sum(c["forwards"] for c in counts if c["replica"] == i) == replica.forwards
+    assert sum(c["real_frames"] for c in counts) == sum(
+        c["real_frames"] for c in one.bucket_counts()) > 0
 
 
 def test_run_bucket_rows_in_the_callers_order(variables):

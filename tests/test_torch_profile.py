@@ -19,6 +19,7 @@ import torch
 from some_tpu_torch.training.me_task import MIDIExtractionTask
 from some_tpu_torch.training.trainer import Trainer
 from some_tpu_torch.utils.checkpoint import load_checkpoint
+from some_tpu_torch.utils import profiling
 from some_tpu_torch.utils.profiling import trace
 from tests.test_torch_train import tiny_dataset  # noqa: F401  (a fixture)
 from tests.test_training import TINY_CONFIG
@@ -62,6 +63,57 @@ def test_window_writes_a_trace(tiny_dataset, tmp_path):  # noqa: F811
     assert any(n.startswith("aten::") for n in names) and "aten::mm" in names
     meta = load_checkpoint(tmp_path / "w" / "model_ckpt_steps_4.ckpt")["meta"]
     assert meta["micro_step"] == 4 and _consumed(trainer, config, meta) == 3  # three batches
+
+
+class MaskTask(MIDIExtractionTask):
+    """Keeps each train step's real frames, read from its mask."""
+
+    def __init__(self, config):
+        super().__init__(dict(config), device="cpu")
+        self.real = []
+
+    def train_step(self, state, batch):
+        self.real.append(int(batch["mask"].sum()))
+        return super().train_step(state, batch)
+
+
+@pytest.mark.parametrize("workers", [0, 1])
+def test_fit_records_its_data_wait_and_step_parts(tiny_dataset, tmp_path, workers):  # noqa: F811
+    """A short fit with ``trace_out``: the loop's wait for each batch (on
+    the prefetch thread's queue, or the read inline at ``ds_workers`` 0),
+    the prefetch parts, each step's parts with its real (counted on the
+    host by ``to_device``) and padded frames, the log read, the validation
+    and the checkpoint at update 2, all in the Chrome trace written when
+    the fit ends."""
+    config = dict(_config(tiny_dataset, tmp_path, window=False), ds_workers=workers,
+                  val_check_interval=2, trace_out=str(tmp_path / "fit.trace.json"))
+    task = MaskTask(config)
+    Trainer(task, tmp_path / "w").fit(max_steps=3)
+    assert not profiling.recording()
+    spans = profiling.snapshot()["spans"]
+    named = {}
+    for s in spans:
+        named.setdefault(s["name"], []).append(s)
+    waits = named["trainer: wait for batch"]
+    assert len(waits) >= 3 and {s["thread"] for s in waits} == {"MainThread"}
+    feeder = "some_tpu_torch-prefetch" if workers else "MainThread"
+    wait_ids = {s["id"] for s in waits}
+    for part in ("prefetch: read", "prefetch: collate", "prefetch: to_device"):
+        assert {s["thread"] for s in named[part]} == {feeder}
+        assert all((s["parent"] in wait_ids) == (not workers) for s in named[part])
+    steps = named["task: train_step"]
+    assert len(steps) == 3 and {s["attrs"]["dispatch"] for s in steps} == {"eager"}
+    step_ids = {s["id"] for s in steps}
+    parts = {s["name"] for s in spans if s["parent"] in step_ids} - {"python: gc"}
+    assert parts == {"task: prepare", "task: eager"}
+    assert [s["attrs"]["real_frames"] for s in steps] == task.real and sum(task.real) > 0
+    for s in steps:
+        assert s["attrs"]["real_frames"] <= s["attrs"]["rows"] * s["attrs"]["frames"]
+    for name in ("trainer: log", "trainer: validate", "trainer: checkpoint"):
+        assert len(named[name]) >= 1, name
+    events = json.loads((tmp_path / "fit.trace.json").read_text())["traceEvents"]
+    written = {e["name"] for e in events if e.get("ph") == "X"}
+    assert set(named) <= written
 
 
 def _consumed(trainer, config, meta) -> int:

@@ -22,6 +22,7 @@ import torch
 from some_tpu_torch.audio.wavio import load_wav, save_wav
 from some_tpu_torch.inference.pipeline import transcribe_waveform
 from some_tpu_torch.serve import BatchingDispatcher, TranscribeJob, make_server
+from some_tpu_torch.utils import profiling
 from tests.test_inference import synth
 from tests.test_torch_engine import assert_notes_match, engines, variables  # noqa: F401
 
@@ -115,7 +116,7 @@ def test_healthz_and_stats(servers):
     with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
         assert json.loads(resp.read())["status"] == "ok"
     with urllib.request.urlopen(base + "/stats", timeout=60) as resp:
-        assert {"requests", "batches", "rtf", "wire"} <= set(json.loads(resp.read()))
+        assert {"requests", "batches", "infer_rtf", "wire"} <= set(json.loads(resp.read()))
     assert http_error(base + "/nowhere")[0] == 404
 
 
@@ -145,6 +146,61 @@ def test_concurrent_requests_batch_and_agree(servers, tmp_path):
         assert status == 200, i
         assert midi == direct_midi(engine, bodies[i]), f"caller {i} got someone else's notes"
     assert dispatcher.snapshot()["max_jobs_per_batch"] >= 2
+
+
+def test_a_request_spans_and_the_bucket_counts(servers, tmp_path):
+    """One request with the recorder on: its handler spans share one
+    request id, its job's time queued and the dispatcher's and engine's
+    spans carry it; /stats has ``buckets``, whose forwards sum to the
+    engine's and whose launched frames are rows x frames."""
+    _, base, engine, _ = servers
+    body = wav_bytes(songs()[1], tmp_path)  # two chunks of two frame buckets
+    profiling.enable()
+    try:
+        assert post(base + "/transcribe?tempo=120&format=json", body)[0] == 200
+        # the reply span closes after its bytes are written, so after the client has them
+        deadline = time.monotonic() + 30
+        while not any(s["name"] == "handler: reply" for s in profiling.snapshot()["spans"]):
+            assert time.monotonic() < deadline, "the reply span never closed"
+            time.sleep(0.01)
+    finally:
+        profiling.disable()
+    spans = profiling.snapshot()["spans"]
+    handler = [s for s in spans if s["name"].startswith("handler: ")]
+    assert {s["name"] for s in handler} == {"handler: read body", "handler: decode WAV",
+                                            "handler: slice", "handler: wait",
+                                            "handler: reply"}
+    (rid,) = {s["rid"] for s in handler}
+    (decoded,) = [s for s in handler if s["name"] == "handler: decode WAV"]
+    (replied,) = [s for s in handler if s["name"] == "handler: reply"]
+    assert decoded["attrs"]["audio_s"] == replied["attrs"]["audio_s"] == pytest.approx(
+        len(songs()[1]) / SR)
+    (queued,) = [s for s in spans if s["name"] == "job: queued"]
+    assert queued["rid"] == rid and queued["detached"] and queued["attrs"]["chunks"] == 2
+    (infer,) = [s for s in spans if s["name"] == "dispatcher: infer"]
+    assert infer["rid"] == (rid,) and infer["thread"] == "serve-dispatcher"
+    assert queued["end"] <= infer["start"]
+    inside = [s for s in spans if s["name"].startswith("engine: ")]
+    assert {s["name"] for s in inside} == {"engine: bucket and wire-encode", "engine: stage",
+                                           "engine: launch", "engine: fetch", "engine: assemble"}
+    assert all(s["rid"] == (rid,) and infer["start"] <= s["start"] <= s["end"] <= infer["end"]
+               for s in inside)
+    launches = [s["attrs"] for s in inside if s["name"] == "engine: launch"]
+    assert len(launches) == 2 and all(a["dispatch"] == "eager" for a in launches)
+    assert all(0 < a["real_frames"] <= a["rows"] * a["frames"] for a in launches)
+    assert {s["name"] for s in spans if s["parent"] == infer["id"]} - {"python: gc"} == {
+        s["name"] for s in inside}
+    with urllib.request.urlopen(base + "/stats", timeout=60) as resp:
+        stats = json.loads(resp.read())
+    buckets = stats["buckets"]
+    assert sum(b["forwards"] for b in buckets) == engine.forwards > 0
+    assert all(b["forwards"] == b["eager"] and b["replay"] == b["capture"] == 0
+               and b["launched_frames"] == b["forwards"] * b["rows"] * b["frames"]
+               and b["real_frames"] <= b["launched_frames"] and b["replica"] == 0
+               for b in buckets)
+    for a in launches:
+        (b,) = [b for b in buckets if (b["rows"], b["frames"]) == (a["rows"], a["frames"])]
+        assert b["real_frames"] >= a["real_frames"]
 
 
 def test_bad_requests_are_400_and_oversize_413(servers):
@@ -280,7 +336,7 @@ def test_failed_jobs_do_not_inflate_rtf(tmp_path):
         assert code == 500 and b"device on fire" in body
         stats = dispatcher.snapshot()
         assert stats["failed_requests"] == 1
-        assert stats["audio_seconds"] == 0.0 and stats["rtf"] == 0.0
+        assert stats["audio_seconds"] == 0.0 and stats["infer_rtf"] == 0.0
     finally:
         httpd.shutdown()
         httpd.server_close()
