@@ -26,6 +26,12 @@ Dispatch, as the JAX engine's:
   stages group N+1 on one worker thread while group N computes, to a
   bounded lookahead (``SOME_TPU_STREAM_DEPTH``, default 1; 0 or
   ``SOME_TPU_STREAM_GROUPS=0`` is serial).
+* **Prepared batches.** ``prepare`` is ``infer``'s host half alone
+  (bucketing and wire encoding, no CUDA call), so a server's thread can
+  prepare the next batch while another has this one on the card;
+  ``infer(waveforms, prepared=...)`` takes it while the wire it was
+  encoded under is still the engine's (``_wire_generation``, advanced by
+  every wire change) and buckets again otherwise.
 * **The wire** (``transfer_dtype``: int16, float32, mulaw8, mulaw12, or
   ``auto``, a policy re-probed on a TTL) and the half-rate wire
   (``wire_sr``): a wire flip rebuilds the mel frontend and drops every
@@ -70,7 +76,7 @@ import pathlib
 import sys
 import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
@@ -131,6 +137,15 @@ def pick_batch_bucket(n_rows: int, cap: int, buckets=DEFAULT_BATCH_BUCKETS) -> i
     while b < n_rows:
         b = min(cap, b * 3 // 2)
     return b
+
+
+class PreparedBatch(NamedTuple):
+    """``BaseInference.prepare``'s result: ``bucket_groups``' (groups,
+    n_parts) and the wire generation they were encoded under (None: the
+    wire flipped while they were bucketed)."""
+    groups: list
+    n_parts: List[int]
+    generation: int | None
 
 
 class _BucketGraph:
@@ -425,6 +440,9 @@ class BaseInference:
         self.wire_factor = self._resolve_wire_factor(config)
         self.wire_sr = config["audio_sample_rate"] // self.wire_factor
         self.hop = config["hop_size"] // self.wire_factor
+        # last, once every field above holds the new wire: a batch bucketed
+        # under an earlier generation is stale (``prepare``)
+        self._wire_generation = getattr(self, "_wire_generation", -1) + 1
 
     def _record_wire_decision(self, mb_s: float, wire: str) -> None:
         self.wire_decision = {"link_mb_s": round(mb_s, 1),
@@ -870,12 +888,34 @@ class BaseInference:
                 groups.append((group, audio, mask))
         return groups, n_parts
 
-    def infer(self, waveforms: List[np.ndarray]) -> List[Dict[str, np.ndarray]]:
-        """Chunk list -> note dicts, batched per bucket: dispatch every group
-        (``dispatch_staged``), then fetch and assemble."""
-        self.maybe_reprobe_wire()
+    def prepare(self, waveforms: List[np.ndarray]) -> PreparedBatch:
+        """The host half of ``infer``: ``bucket_groups`` of the chunks, with
+        the wire generation they were encoded under, for a later
+        ``infer(waveforms, prepared=...)``. Host numpy alone: it makes no
+        CUDA call of any kind (no allocation, pinned memory, copy, stream or
+        event), so another thread may run it while this engine's work is on
+        the card; staging and pinning stay in ``dispatch_staged``, on the
+        thread that launches. A wire flip while it buckets leaves the
+        batch stale, and ``infer`` buckets it again."""
+        generation = self._wire_generation
         with profiling.span("engine: bucket and wire-encode"):
             groups, n_parts = self.bucket_groups(waveforms)
+        if self._wire_generation != generation:
+            generation = None
+        return PreparedBatch(groups, n_parts, generation)
+
+    def infer(self, waveforms: List[np.ndarray],
+              prepared: PreparedBatch | None = None) -> List[Dict[str, np.ndarray]]:
+        """Chunk list -> note dicts, batched per bucket: dispatch every group
+        (``dispatch_staged``), then fetch and assemble. ``prepared``
+        (``prepare`` of these ``waveforms``) stands in for the bucketing
+        while the wire it was encoded under is still the engine's."""
+        self.maybe_reprobe_wire()
+        if prepared is not None and prepared.generation == self._wire_generation:
+            groups, n_parts = prepared.groups, prepared.n_parts
+        else:
+            with profiling.span("engine: bucket and wire-encode"):
+                groups, n_parts = self.bucket_groups(waveforms)
         outs = self.dispatch_staged([(audio, mask) for _, audio, mask in groups])
         parts: List[list] = [[None] * n for n in n_parts]
         for (group, _, _), out in zip(groups, outs):

@@ -1,18 +1,28 @@
 """Batch-serving HTTP API: WAV in, MIDI (or JSON notes) out.
 
-Counterpart of the JAX package's ``serve.py``. A dispatcher thread
-micro-batches the chunks of concurrent requests into one ``engine.infer``
-call, so many small requests fill the rows of the engine's bucket graphs
-instead of running one bucket each.
+Counterpart of the JAX package's ``serve.py``. The chunks of concurrent
+requests are micro-batched into one ``engine.infer`` call, so many small
+requests fill the rows of the engine's bucket graphs instead of running
+one bucket each. Two threads pass the batches along, one batch apart:
+``serve-dispatcher`` drains the queue and prepares batch N+1
+(``engine.prepare``: bucketing and wire encoding, host numpy alone) while
+``serve-launcher`` has batch N on the card (``engine.infer``, the only call
+that launches work there, on that thread alone), then resolves its jobs.
 
 Endpoints
   POST /transcribe?tempo=120[&format=json]   body: WAV bytes
        -> audio/midi SMF bytes (or JSON note arrays with format=json)
   GET  /healthz  -> {"status": "ok"|"stalled"|"recycle", "queue_depth": N, ...}
+                    (``queue_depth``: the jobs not yet on the card, queued or
+                    prepared)
   GET  /stats    -> cumulative counts: requests, batches, audio seconds;
                     ``infer_seconds``, the host's time inside ``engine.infer``
-                    (bucketing, wire encoding, staging, launches, the fetch,
-                    assembly) and ``infer_rtf``, audio seconds over it; per job
+                    (staging, launches, the fetch, assembly; the bucketing and
+                    wire encoding too for a batch that was not prepared) and
+                    ``infer_rtf``, audio seconds over it; ``prepared_ahead``,
+                    the batches that were prepared when the launcher asked for
+                    them, and ``prepare_wait_seconds``, the launcher's time
+                    waiting for the preparing stage; per job
                     ``job_queue_wait_ms`` and ``job_infer_ms``; ``buckets``, the
                     engine's ``bucket_counts()`` (each bucket's forwards by
                     replay, capture and eager run, real and launched frames)
@@ -23,10 +33,13 @@ Endpoints
 ``--trace-out PATH`` switches the program's span recorder
 (``utils/profiling``) on and writes it to PATH as a Chrome trace when the
 server shuts down: each request's handler spans (read body, decode WAV,
-slice, wait, reply) under one request id, the dispatcher's (wait for job,
-batching wait, infer, resolve, each job's time queued) and the engine's
-(bucket and wire-encode, stage, launch, fetch, assemble, capture, wire
-re-probe).
+slice, wait, reply) under one request id; on ``serve-dispatcher`` wait for
+job, batching wait and prepare (its jobs' ids; the engine's bucket and
+wire-encode inside); on ``serve-launcher`` wait for prepared, infer (its
+jobs' ids, chunks and ``ahead``: whether the batch was prepared when the
+launcher asked for it; the engine's stage, launch, fetch, assemble,
+capture and wire re-probe inside) and resolve; each job's time queued
+(submit to its batch's ``engine.infer``).
 
 Stdlib only (``http.server``, argparse). Runs on the card unless
 ``--device cpu``; without a card it raises.
@@ -34,6 +47,7 @@ Stdlib only (``http.server``, argparse). Runs on the card unless
 from __future__ import annotations
 
 import argparse
+import inspect
 import io
 import itertools
 import json
@@ -97,9 +111,15 @@ class TranscribeJob:
 
 
 class BatchingDispatcher:
-    """One consumer thread: drains queued jobs, concatenates their chunk
-    lists into one ``engine.infer`` call (the engine groups chunks by frame
-    bucket and batches rows), then splits the results back per job."""
+    """Two threads, one batch apart. ``serve-dispatcher`` drains queued
+    jobs, concatenates their chunk lists into one batch and prepares it
+    (``engine.prepare``: bucketing and wire encoding on the host) while
+    ``serve-launcher`` has the batch before it on the card
+    (``engine.infer``, the only call that launches work there) and splits
+    its results back per job. A slot of one batch joins them: the
+    dispatcher drains only once the slot is empty, so at most one batch
+    waits beyond the one on the card. An engine without ``prepare`` is
+    bucketed inside its ``infer``, on the launcher."""
 
     def __init__(self, engine, max_wait_ms: float = 25.0,
                  max_chunks_per_batch: Optional[int] = None,
@@ -107,35 +127,56 @@ class BatchingDispatcher:
         self.engine = engine
         self.max_wait = max_wait_ms / 1000.0
         self.max_chunks = max_chunks_per_batch or 4 * engine.max_batch_chunks
-        # fast lane: a job arriving to an empty queue dispatches at once
-        # instead of waiting max_wait_ms for batch-mates; a concurrent burst
-        # still batches (its tail finds a non-empty queue)
+        # fast lane: a job arriving to an empty queue while the launcher is
+        # idle dispatches at once instead of waiting max_wait_ms for
+        # batch-mates; a burst, or a job behind a running batch, still
+        # batches
         self.fast_lane = fast_lane
         # bounded: a stalled device and retrying clients must not grow an
-        # unbounded backlog of waveforms (submit -> False -> HTTP 429)
+        # unbounded backlog of waveforms (submit -> False -> HTTP 429);
+        # submit counts against its maxsize every job not yet on the card
         self.jobs: "queue.Queue[TranscribeJob]" = queue.Queue(max_queue_jobs)
         self.stats = {"requests": 0, "failed_requests": 0,
                       "abandoned_requests": 0, "batches": 0,
                       "audio_seconds": 0.0, "infer_seconds": 0.0,
-                      "max_jobs_per_batch": 0}
+                      "max_jobs_per_batch": 0, "prepared_ahead": 0,
+                      "prepare_wait_seconds": 0.0}
         # per-job (queue wait, engine.infer) seconds, the last 2048: is a
         # slow request waiting in the queue or in its batch's infer?
         self._job_times: "deque[tuple]" = deque(maxlen=2048)
         self._lock = threading.Lock()
+        self._slot_filled = threading.Condition(self._lock)
+        self._slot_emptied = threading.Condition(self._lock)
+        # the prepared batch, (jobs, waveforms, prepared), that the launcher
+        # has not taken yet
+        self._slot: Optional[tuple] = None
+        # jobs submitted and not yet on the card: queued, being drained or
+        # prepared, or in the slot
+        self._waiting = 0
+        self._launching = False  # the launcher holds a batch
         self._busy_since: Optional[float] = None
-        self._thread = threading.Thread(target=self._run, daemon=True, name="serve-dispatcher")
-        self._thread.start()
+        self._threads = [threading.Thread(target=self._prepare_loop, daemon=True,
+                                          name="serve-dispatcher"),
+                         threading.Thread(target=self._launch_loop, daemon=True,
+                                          name="serve-launcher")]
+        for thread in self._threads:
+            thread.start()
 
     def submit(self, job: TranscribeJob) -> bool:
         job.t_submit = time.monotonic()
-        try:
-            self.jobs.put_nowait(job)
-            return True
-        except queue.Full:
-            return False
+        with self._lock:
+            if 0 < self.jobs.maxsize <= self._waiting:
+                return False
+            self._waiting += 1
+        # never full: the queue holds no more than the jobs counted waiting
+        self.jobs.put_nowait(job)
+        return True
 
     def queue_depth(self) -> int:
-        return self.jobs.qsize()
+        """Jobs submitted and not yet on the card (the count ``submit``
+        holds to the queue's maxsize)."""
+        with self._lock:
+            return self._waiting
 
     def busy_seconds(self) -> float:
         """How long the current ``engine.infer`` call has been running (0
@@ -153,7 +194,7 @@ class BatchingDispatcher:
     def _drain(self) -> List[TranscribeJob]:
         with profiling.span("dispatcher: wait for job"):
             batch = [self.jobs.get()]  # block for the first job
-        if self.fast_lane and self.jobs.empty():
+        if self.fast_lane and self.jobs.empty() and not self._launching:
             return batch
         with profiling.span("dispatcher: batching wait"):
             deadline = time.monotonic() + self.max_wait
@@ -170,45 +211,102 @@ class BatchingDispatcher:
                 n_chunks += len(job.chunks)
         return batch
 
-    def _run(self) -> None:
+    def _prepare_loop(self) -> None:
         while True:
+            with self._lock:
+                while self._slot is not None:
+                    self._slot_emptied.wait()
             batch = self._drain()
             # resolution only goes None -> value, so a job already claimed
             # "abandoned" is dropped without spending device time on it
             dropped = [job for job in batch if job.resolution == "abandoned"]
             batch = [job for job in batch if job.resolution != "abandoned"]
-            if dropped:
-                with self._lock:
-                    self.stats["abandoned_requests"] += len(dropped)
+            with self._lock:
+                self._waiting -= len(dropped)
+                self.stats["abandoned_requests"] += len(dropped)
             if not batch:
                 continue
             waveforms = [w for job in batch for w in job.chunks]
-            t0 = time.monotonic()
+            prepared = None
+            prepare = self._preparer()
+            if prepare is not None:
+                try:
+                    with profiling.span("dispatcher: prepare") as sp:
+                        if sp:
+                            sp.rid = tuple(job.rid for job in batch)
+                            sp.attrs["chunks"] = len(waveforms)
+                        prepared = prepare(waveforms)
+                except Exception as exc:  # the boundary: every caller in the batch gets it
+                    with self._lock:
+                        self._waiting -= len(batch)
+                    self._fail(batch, exc)
+                    continue
+            with self._lock:
+                self._slot = (batch, waveforms, prepared)
+                self._slot_filled.notify()
+
+    def _preparer(self):
+        """The engine's ``prepare`` where its ``infer`` takes the prepared
+        batch; None where either is missing (an engine without the split,
+        or whose ``infer`` was replaced by a one-argument wrapper), and
+        ``infer`` then buckets the batch itself."""
+        prepare = getattr(self.engine, "prepare", None)
+        if prepare is None:
+            return None
+        try:
+            takes = "prepared" in inspect.signature(self.engine.infer).parameters
+        except (TypeError, ValueError):  # no signature to read
+            return None
+        return prepare if takes else None
+
+    def _launch_loop(self) -> None:
+        while True:
+            with profiling.span("dispatcher: wait for prepared"):
+                t_ask = time.monotonic()
+                with self._lock:
+                    ahead = self._slot is not None
+                    while self._slot is None:
+                        self._slot_filled.wait()
+                    batch, waveforms, prepared = self._slot
+                    self._slot = None
+                    self._slot_emptied.notify()
+                    self._waiting -= len(batch)
+                    self._launching = True
+                    t0 = self._busy_since = time.monotonic()
+                    self.stats["prepared_ahead"] += ahead
+                    self.stats["prepare_wait_seconds"] += t0 - t_ask
             if profiling.recording():
                 for job in batch:
                     profiling.record("job: queued", round(job.t_submit * 1e9), round(t0 * 1e9),
                                      job.rid, chunks=len(job.chunks))
-            with self._lock:
-                self._busy_since = t0
             try:
                 with profiling.span("dispatcher: infer") as sp:
                     if sp:
                         sp.rid = tuple(job.rid for job in batch)
-                        sp.attrs["chunks"] = len(waveforms)
-                    all_segments = self.engine.infer(waveforms)
+                        sp.attrs.update(chunks=len(waveforms), ahead=ahead)
+                    if prepared is None:
+                        all_segments = self.engine.infer(waveforms)
+                    else:
+                        all_segments = self.engine.infer(waveforms, prepared=prepared)
             except Exception as exc:  # the boundary: every caller in the batch gets it
-                failed = 0
-                for job in batch:
-                    job.error = f"{type(exc).__name__}: {exc}"
-                    failed += job.resolve("failed")
-                    job.done.set()
                 with self._lock:
                     self._busy_since = None
-                    self.stats["failed_requests"] += failed
-                    self.stats["abandoned_requests"] += len(batch) - failed
+                    self._launching = False
+                self._fail(batch, exc)
                 continue
             with profiling.span("dispatcher: resolve"):
                 self._resolve(batch, all_segments, t0)
+
+    def _fail(self, batch: List[TranscribeJob], exc: Exception) -> None:
+        """Fail every job of a batch with ``exc`` and wake its handler."""
+        failed = 0
+        for job in batch:
+            job.error = f"{type(exc).__name__}: {exc}"
+            failed += job.resolve("failed")
+            job.done.set()
+        with self._lock:
+            self.stats["failed_requests"] += failed
+            self.stats["abandoned_requests"] += len(batch) - failed
 
     def _resolve(self, batch: List[TranscribeJob], all_segments, t0: float) -> None:
         """Hand each job of a batch its segments and wake its handler."""
@@ -226,9 +324,11 @@ class BatchingDispatcher:
             # loses it (the fields are final, it delivers)
             if job.resolve("delivered"):
                 delivered.append(job)
-            job.done.set()
         with self._lock:
             self._busy_since = None
+            # idle before any handler wakes: the caller's next job may take
+            # the fast lane
+            self._launching = False
             self.stats["requests"] += len(delivered)
             self.stats["abandoned_requests"] += len(batch) - len(delivered)
             self.stats["batches"] += 1
@@ -238,6 +338,8 @@ class BatchingDispatcher:
             self.stats["audio_seconds"] += sum(job.audio_seconds for job in delivered)
             self.stats["max_jobs_per_batch"] = max(self.stats["max_jobs_per_batch"],
                                                    len(batch))
+        for job in batch:
+            job.done.set()
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -373,7 +475,7 @@ def make_server(engine, config: dict, addr: str, port: int,
             with profiling.span("handler: wait", rid):
                 done = job.done.wait(timeout=infer_timeout_s)
             if not done:
-                # a hung device call holds the dispatcher thread; tell the
+                # a hung device call holds the launcher thread; tell the
                 # caller instead of hanging the connection with it
                 if job.resolve("abandoned"):
                     self._reply_json(503, {"error": "inference backend stalled"})

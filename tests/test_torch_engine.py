@@ -212,6 +212,96 @@ def test_auto_wire_reprobe_flips_and_drops_graphs(variables, monkeypatch):
     assert_notes_match(again, jax_engine.infer([wav]))
 
 
+def counting_bucket_groups(port):
+    """Count ``port.bucket_groups``' calls (through the instance, as
+    ``prepare`` and ``infer`` call it)."""
+    calls = []
+    inner = port.bucket_groups
+
+    def bucket_groups(waveforms):
+        calls.append(len(waveforms))
+        return inner(waveforms)
+
+    port.bucket_groups = bucket_groups
+    return calls
+
+
+def assert_same_bits(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for key in w:
+            np.testing.assert_array_equal(g[key], w[key])
+
+
+@pytest.mark.parametrize("case", ["oversize split", "frame buckets", "mesh of 2"])
+def test_prepared_batch_infers_the_same_bits(variables, case):
+    """``infer(w, prepared=prepare(w))`` gives ``infer(w)``'s replies bit for
+    bit and buckets nothing itself: an oversize chunk split in three, a
+    batch of three frame buckets in four groups, and a CPU mesh of two
+    replicas."""
+    state = jax_params_to_state_dict(variables["params"], variables["batch_stats"])
+    if case == "mesh of 2":
+        from some_tpu_torch.parallel.mesh import make_mesh
+
+        port = MIDIExtractionInference.from_state_dict(CONFIG, state, dtype=torch.float32,
+                                                       mesh=make_mesh(["cpu"] * 2))
+        waves = [synth(s, f, seed=i) for i, (s, f) in enumerate(WAVES[:3])]
+    else:
+        port = MIDIExtractionInference.from_state_dict(CONFIG, state, dtype=torch.float32,
+                                                       device="cpu")
+        if case == "oversize split":
+            port.frame_buckets = (64, 128)
+            waves = [synth(300 * 512 / 44100, 440, seed=21)]
+        else:
+            port.max_batch_chunks = 2
+            waves = [synth(s, f, seed=i) for i, (s, f) in enumerate(WAVES)]
+    calls = counting_bucket_groups(port)
+    want = port.infer(waves)
+    prepared = port.prepare(waves)
+    assert prepared.generation == port._wire_generation and len(calls) == 2
+    if case == "oversize split":
+        assert prepared.n_parts == [3]
+    if case == "frame buckets":
+        assert len(prepared.groups) == 4
+    assert_same_bits(port.infer(waves, prepared=prepared), want)
+    assert len(calls) == 2  # the prepared groups were used
+
+
+def test_a_wire_flip_makes_a_prepared_batch_stale(variables):
+    """A wire change between ``prepare`` and ``infer`` (``_set_wire``
+    advances the generation, as the auto wire's re-probe does) makes
+    ``infer`` bucket again, and its replies are a fresh ``infer``'s under
+    the new wire; a change while ``prepare`` buckets leaves the batch
+    stale at once."""
+    _, port = engines(variables)
+    waves = [synth(0.9, 392, seed=31), synth(2.2, 494, seed=32)]
+    calls = counting_bucket_groups(port)
+    prepared = port.prepare(waves)
+    assert port.wire == "int16" and prepared.groups[0][1].dtype == np.int16
+    generation = port._wire_generation
+    port._set_wire("float32")
+    port._rebuild_wire_pipeline()
+    assert port._wire_generation == generation + 1
+    got = port.infer(waves, prepared=prepared)
+    assert len(calls) == 2
+    assert_same_bits(got, port.infer(waves))
+
+    inner = port.bucket_groups
+
+    def flipping(waveforms):
+        out = inner(waveforms)
+        port._set_wire(port.wire)
+        return out
+
+    port.bucket_groups = flipping
+    stale = port.prepare(waves)
+    assert stale.generation is None
+    port.bucket_groups = inner
+    assert_same_bits(port.infer(waves, prepared=stale), got)
+    assert len(calls) == 5  # the stale batch was bucketed again
+
+
 def test_frame_outputs_and_dispatch_switch(variables):
     _, port = engines(variables)
     groups, n_parts = port.bucket_groups([synth(1.0, 440, seed=1)])

@@ -151,8 +151,11 @@ def test_concurrent_requests_batch_and_agree(servers, tmp_path):
 def test_a_request_spans_and_the_bucket_counts(servers, tmp_path):
     """One request with the recorder on: its handler spans share one
     request id, its job's time queued and the dispatcher's and engine's
-    spans carry it; /stats has ``buckets``, whose forwards sum to the
-    engine's and whose launched frames are rows x frames."""
+    spans carry it; the batch is prepared on ``serve-dispatcher`` (the
+    engine's bucketing inside) before it runs on ``serve-launcher`` (the
+    engine's staging, launches, fetch and assembly inside); /stats has
+    ``buckets``, whose forwards sum to the engine's and whose launched
+    frames are rows x frames."""
     _, base, engine, _ = servers
     body = wav_bytes(songs()[1], tmp_path)  # two chunks of two frame buckets
     profiling.enable()
@@ -177,12 +180,20 @@ def test_a_request_spans_and_the_bucket_counts(servers, tmp_path):
         len(songs()[1]) / SR)
     (queued,) = [s for s in spans if s["name"] == "job: queued"]
     assert queued["rid"] == rid and queued["detached"] and queued["attrs"]["chunks"] == 2
+    (prepare,) = [s for s in spans if s["name"] == "dispatcher: prepare"]
+    assert prepare["rid"] == (rid,) and prepare["thread"] == "serve-dispatcher"
     (infer,) = [s for s in spans if s["name"] == "dispatcher: infer"]
-    assert infer["rid"] == (rid,) and infer["thread"] == "serve-dispatcher"
-    assert queued["end"] <= infer["start"]
-    inside = [s for s in spans if s["name"].startswith("engine: ")]
-    assert {s["name"] for s in inside} == {"engine: bucket and wire-encode", "engine: stage",
-                                           "engine: launch", "engine: fetch", "engine: assemble"}
+    assert infer["rid"] == (rid,) and infer["thread"] == "serve-launcher"
+    assert infer["attrs"]["ahead"] in (True, False) and infer["attrs"]["chunks"] == 2
+    assert prepare["end"] <= infer["start"] and queued["end"] <= infer["start"]
+    (bucketed,) = [s for s in spans if s["name"] == "engine: bucket and wire-encode"]
+    assert bucketed["rid"] == (rid,) and bucketed["parent"] == prepare["id"]
+    assert prepare["start"] <= bucketed["start"] <= bucketed["end"] <= prepare["end"]
+    assert {s["name"] for s in spans if s["parent"] == prepare["id"]} - {"python: gc"} == {
+        "engine: bucket and wire-encode"}
+    inside = [s for s in spans if s["name"].startswith("engine: ") and s is not bucketed]
+    assert {s["name"] for s in inside} == {"engine: stage", "engine: launch", "engine: fetch",
+                                           "engine: assemble"}
     assert all(s["rid"] == (rid,) and infer["start"] <= s["start"] <= s["end"] <= infer["end"]
                for s in inside)
     launches = [s["attrs"] for s in inside if s["name"] == "engine: launch"]
@@ -255,6 +266,230 @@ class FailingEngine:
 
     def infer(self, waveforms):
         raise RuntimeError("device on fire")
+
+
+class PreparingEngine:
+    """An engine with ``prepare``: it logs each call, and its ``infer``
+    waits for ``release`` (a batch held on the card); ``fail_prepare``
+    makes the next ``prepare`` raise."""
+    max_batch_chunks = 8
+
+    def __init__(self, released=False):
+        self.release = threading.Event()
+        if released:
+            self.release.set()
+        self.log = []
+        self.fail_prepare = False
+
+    def prepare(self, waveforms):
+        self.log.append(("prepare", len(waveforms), threading.current_thread().name))
+        if self.fail_prepare:
+            self.fail_prepare = False
+            raise ValueError("bad batch")
+        return ("prepared", len(waveforms))
+
+    def infer(self, waveforms, prepared=None):
+        assert prepared == ("prepared", len(waveforms))
+        self.log.append(("infer", len(waveforms), threading.current_thread().name))
+        self.release.wait(timeout=30)
+        return no_notes(waveforms)
+
+    def calls(self, kind):
+        return [n for k, n, _ in self.log if k == kind]
+
+
+def wait_for(condition, what, timeout=10.0):
+    deadline = time.monotonic() + timeout
+    while not condition():
+        assert time.monotonic() < deadline, what
+        time.sleep(0.005)
+
+
+def chunks_job(n):
+    return TranscribeJob([np.zeros(16, np.float32)] * n, [0.0] * n, 120.0)
+
+
+def test_the_next_batch_is_prepared_while_one_is_on_the_card():
+    engine = PreparingEngine()
+    dispatcher = BatchingDispatcher(engine, max_wait_ms=1.0)
+    first, second = chunks_job(1), chunks_job(2)
+    try:
+        assert dispatcher.submit(first)
+        wait_for(lambda: engine.calls("infer"), "the first batch never reached infer")
+        assert dispatcher.submit(second)
+        wait_for(lambda: engine.calls("prepare") == [1, 2], "the second batch was not prepared")
+        # prepared on its own thread while the first is still held in infer
+        assert engine.calls("infer") == [1] and not first.done.is_set()
+        assert {t for k, _, t in engine.log if k == "prepare"} == {"serve-dispatcher"}
+        assert {t for k, _, t in engine.log if k == "infer"} == {"serve-launcher"}
+        assert dispatcher.queue_depth() == 1  # prepared, not yet on the card
+    finally:
+        engine.release.set()
+    assert first.done.wait(timeout=10) and second.done.wait(timeout=10)
+    assert first.error is None and second.error is None
+    assert engine.calls("infer") == [1, 2]
+    wait_for(lambda: dispatcher.snapshot()["batches"] == 2, "the batches were not counted")
+    stats = dispatcher.snapshot()
+    # the second batch waited in the slot for the launcher
+    assert stats["prepared_ahead"] == 1 and stats["prepare_wait_seconds"] > 0
+
+
+def test_no_third_batch_is_drained_while_one_runs_and_one_waits():
+    engine = PreparingEngine()
+    dispatcher = BatchingDispatcher(engine, max_wait_ms=1.0)
+    jobs = [chunks_job(1), chunks_job(2), chunks_job(3), chunks_job(4)]
+    try:
+        assert dispatcher.submit(jobs[0])
+        wait_for(lambda: engine.calls("infer"), "the first batch never reached infer")
+        assert dispatcher.submit(jobs[1])
+        wait_for(lambda: len(engine.calls("prepare")) == 2, "the second batch was not prepared")
+        assert dispatcher.submit(jobs[2]) and dispatcher.submit(jobs[3])
+        time.sleep(0.3)
+        # the slot is full: the last two stay queued, neither drained nor prepared
+        assert engine.calls("prepare") == [1, 2] and dispatcher.jobs.qsize() == 2
+        assert dispatcher.queue_depth() == 3
+    finally:
+        engine.release.set()
+    for job in jobs:
+        assert job.done.wait(timeout=10) and job.error is None
+    # drained only once the second batch left the slot: the last two together
+    assert engine.calls("prepare") == engine.calls("infer") == [1, 2, 7]
+
+
+def test_a_lone_job_takes_the_fast_lane_and_a_burst_behind_a_batch_batches():
+    wave = np.zeros(16, np.float32)
+    engine = PreparingEngine(released=True)
+    dispatcher = BatchingDispatcher(engine, max_wait_ms=1500.0, fast_lane=True)
+    job = TranscribeJob([wave], [0.0], 120.0)
+    t0 = time.monotonic()
+    assert dispatcher.submit(job) and job.done.wait(timeout=10)
+    assert time.monotonic() - t0 < 1.0, "a lone job on an idle server must not wait the window"
+
+    engine = PreparingEngine()
+    dispatcher = BatchingDispatcher(engine, max_wait_ms=200.0, fast_lane=True)
+    first = TranscribeJob([wave], [0.0], 120.0)
+    try:
+        assert dispatcher.submit(first)  # fast-laned into the held infer
+        wait_for(lambda: engine.calls("infer"), "the first batch never reached infer")
+        burst = [TranscribeJob([wave], [0.0], 120.0) for _ in range(3)]
+        for job in burst:
+            assert dispatcher.submit(job)
+        wait_for(lambda: len(engine.calls("prepare")) == 2, "the burst was not prepared")
+    finally:
+        engine.release.set()
+    for job in burst + [first]:
+        assert job.done.wait(timeout=10)
+    assert engine.calls("infer") == [1, 3], engine.log
+
+
+def test_a_prepared_batch_counts_against_the_queue():
+    """max_queue_jobs=1: one job held on the card, the next drained into the
+    prepared slot still counts, so a third is refused."""
+    engine = PreparingEngine()
+    dispatcher = BatchingDispatcher(engine, max_wait_ms=1.0, max_queue_jobs=1)
+    try:
+        assert dispatcher.submit(chunks_job(1))
+        wait_for(lambda: dispatcher.queue_depth() == 0, "the first job never left the queue")
+        assert dispatcher.submit(chunks_job(2))
+        wait_for(lambda: len(engine.calls("prepare")) == 2, "the second job was not prepared")
+        assert dispatcher.jobs.qsize() == 0 and dispatcher.queue_depth() == 1
+        assert not dispatcher.submit(chunks_job(1)), "a prepared job must count as queued"
+    finally:
+        engine.release.set()
+    wait_for(lambda: dispatcher.queue_depth() == 0, "the prepared job never reached the card")
+    assert dispatcher.submit(chunks_job(1))
+
+
+def test_a_failed_prepare_fails_its_jobs_and_the_next_is_served():
+    engine = PreparingEngine(released=True)
+    engine.fail_prepare = True
+    dispatcher = BatchingDispatcher(engine, max_wait_ms=1.0)
+    bad = chunks_job(1)
+    assert dispatcher.submit(bad) and bad.done.wait(timeout=10)
+    assert bad.error == "ValueError: bad batch" and bad.resolution == "failed"
+    assert engine.calls("infer") == []
+    good = chunks_job(2)
+    assert dispatcher.submit(good) and good.done.wait(timeout=10)
+    assert good.error is None and good.resolution == "delivered" and len(good.segments) == 2
+    wait_for(lambda: dispatcher.snapshot()["requests"] == 1, "the good job was not counted")
+    stats = dispatcher.snapshot()
+    assert stats["failed_requests"] == 1 and stats["batches"] == 1
+    assert dispatcher.queue_depth() == 0
+
+
+def test_stats_report_the_prepared_batches(tmp_path):
+    engine = PreparingEngine(released=True)
+    httpd, _ = make_server(engine, STUB_CONFIG, "127.0.0.1", 0, max_wait_ms=1.0)
+    base = start(httpd)
+    try:
+        assert post(base + "/transcribe?tempo=120",
+                    wav_bytes(synth(0.3, 440.0, seed=2), tmp_path))[0] == 200
+        with urllib.request.urlopen(base + "/stats", timeout=60) as resp:
+            stats = json.loads(resp.read())
+        assert stats["batches"] == 1 and stats["prepared_ahead"] in (0, 1)
+        assert isinstance(stats["prepare_wait_seconds"], float)
+        assert stats["prepare_wait_seconds"] >= 0
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
+            assert json.loads(resp.read())["queue_depth"] == 0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
+def test_an_infer_that_takes_no_prepared_batch_buckets_itself():
+    """An engine whose ``infer`` was replaced by a one-argument wrapper (as
+    a planted fault does) is served without ``prepare``."""
+    engine = PreparingEngine(released=True)
+    inner = engine.infer
+    engine.infer = lambda waveforms: inner(waveforms, prepared=("prepared", len(waveforms)))
+    dispatcher = BatchingDispatcher(engine, max_wait_ms=1.0)
+    job = chunks_job(3)
+    assert dispatcher.submit(job) and job.done.wait(timeout=10)
+    assert job.error is None and len(job.segments) == 3
+    assert engine.calls("prepare") == [] and engine.calls("infer") == [3]
+
+
+def test_the_pipeline_under_contention_loses_no_job():
+    """16 threads submit 400 jobs of 1-3 chunks against a queue of 4 with a
+    short switch interval: every accepted job is delivered once, with its
+    own chunks' replies, the refused ones are counted, and the count of
+    jobs not yet on the card returns to 0."""
+    import sys
+
+    engine = PreparingEngine(released=True)
+    dispatcher = BatchingDispatcher(engine, max_wait_ms=0.5, max_queue_jobs=4)
+    accepted, refused = [], []
+    lock = threading.Lock()
+
+    def client(i):
+        for k in range(25):
+            job = chunks_job(1 + (i + k) % 3)
+            ok = dispatcher.submit(job)
+            with lock:
+                (accepted if ok else refused).append(job)
+            if ok and k % 4 == 0:
+                assert job.done.wait(timeout=30)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert len(accepted) + len(refused) == 400 and accepted and refused
+    for job in accepted:
+        assert job.done.wait(timeout=30) and job.resolution == "delivered"
+        assert len(job.segments) == len(job.chunks)
+    assert not any(job.done.is_set() for job in refused)
+    wait_for(lambda: dispatcher.snapshot()["requests"] == len(accepted),
+             "not every accepted job was counted")
+    assert dispatcher.queue_depth() == 0
+    assert sum(engine.calls("infer")) == sum(len(job.chunks) for job in accepted)
 
 
 def test_stalled_backend_is_503_not_a_hang(tmp_path):
